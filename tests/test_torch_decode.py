@@ -1,0 +1,357 @@
+"""The port's staged decode end to end against the JAX package: host
+Fano binding, int8 window transfer, decode_channels over a two-pass
+batch with subtraction, the decoder facade, the bucket pipeline, the
+device rule and import hygiene."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from rtlsdr_wsprd_tpu import native as jnative
+from rtlsdr_wsprd_tpu.config import DecoderOptions as JOptions
+from rtlsdr_wsprd_tpu.parallel import multichannel as jmc
+from rtlsdr_wsprd_tpu.utils.channel import (
+    INTERLEAVE_PERM,
+    get_wspr_channel_symbols,
+)
+from rtlsdr_wsprd_tpu.utils.hashtable import WsprHashTable
+from rtlsdr_wsprd_tpu_torch import native as pnative
+from rtlsdr_wsprd_tpu_torch.config import DecoderOptions
+from rtlsdr_wsprd_tpu_torch.ops.fano import build_mettab
+from rtlsdr_wsprd_tpu_torch.parallel import multichannel as pmc
+
+from torch_parity import CPU, assert_spots_match, windows3
+from torch_parity import jax_host_fec  # noqa: F401  (fixture)
+
+REPO = Path(__file__).resolve().parent.parent
+QUICK = dict(quickmode=True)
+
+
+@pytest.fixture(scope="module")
+def wins():
+    return windows3()
+
+
+def _hard(message: str) -> np.ndarray:
+    chan = get_wspr_channel_symbols(message, WsprHashTable())
+    soft = np.where(chan >= 2, 255, 0).astype(np.uint8)
+    return soft[np.asarray(INTERLEAVE_PERM)]
+
+
+def test_host_fano_bit_exact_with_jax_binding():
+    """The port's ctypes binding to native/hostdsp.cpp against the JAX
+    package's: success, data, cycles, metric and depth identical on a
+    clean decode, a noisy decode and a failing search."""
+    rng = np.random.default_rng(12)
+    mettab = build_mettab()
+    good = _hard("K1JT FN20 37")
+    noisy = np.clip(good.astype(int) + rng.normal(0, 70, 162), 0,
+                    255).astype(np.uint8)
+    garbage = rng.integers(100, 156, 162).astype(np.uint8)
+    for syms, maxcycles in ((good, 10000), (noisy, 10000), (garbage, 50)):
+        got = pnative.fano_decode(syms, mettab, 60, maxcycles)
+        ref = jnative.fano_decode(syms, mettab, 60, maxcycles)
+        assert got[0] == ref[0]
+        np.testing.assert_array_equal(got[1], ref[1])
+        assert got[2:] == ref[2:]
+    assert pnative.fano_decode(good, mettab)[0]
+    assert not pnative.fano_decode(garbage, mettab, 60, 50)[0]
+
+
+@pytest.mark.parametrize("dtype,scale", [(np.int8, 254.0),
+                                         (np.int16, 65534.0)])
+def test_window_quantization_equals_jax(dtype, scale):
+    """float32 -> int8/int16 transfer quantization: NaN -> 0, round to
+    nearest even, clamp to the symmetric range; equal to the JAX
+    package's native quantizer element for element."""
+    rng = np.random.default_rng(13)
+    x = rng.normal(0, 0.3, (3, 1000)).astype(np.float32)
+    x[0, :6] = [np.nan, np.inf, -np.inf, 2.0, -2.0, 0.5 / scale * 3]
+    got = np.zeros(x.shape, dtype)
+    ref = np.zeros(x.shape, dtype)
+    pnative.quantize_into(x, got, np.float32(scale))
+    jnative.quantize_into(x, ref, np.float32(scale))
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_device_windows_dequantize_like_jax(wins):
+    """The int8 window upload dequantizes to the same float32 samples as
+    the JAX package's _DeviceWindows, padding rows included."""
+    wi, wq = wins
+    got = pmc._DeviceWindows(wi, wq, device_batch=2, device=CPU)
+    ref = jmc._DeviceWindows(wi, wq, device_batch=2)
+    assert got.n_pad == ref.n_pad == 4
+    for g, r in zip(got.arrays, ref.arrays):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+def test_decode_channels_matches_jax(wins, jax_host_fec):
+    """decode_channels(fec='host') on three windows (two overlapping
+    signals whose weak one decodes only in pass 2 after subtraction, one
+    single signal, noise only) gives the JAX package's spot lists:
+    equal in call, loc, pwr, message, jitter, cycles and drift, floats
+    within the tolerances of torch_parity.assert_spots_match."""
+    wi, wq = wins
+    got = pmc.decode_channels(wi, wq, DecoderOptions(**QUICK),
+                              device_batch=3, device=CPU, fec="host")
+    ref = jmc.decode_channels(wi, wq, JOptions(**QUICK), device_batch=3,
+                              fec="host")
+    assert_spots_match(got, ref)
+    assert [sorted(s.call for s in ch) for ch in got] == \
+        [["K1JT", "K9AN"], ["G4ABC"], []]
+    # the weak signal needs the second pass: one pass misses it
+    one = pmc.decode_channels(wi, wq, DecoderOptions(npasses=1, **QUICK),
+                              device_batch=3, device=CPU)
+    assert [s.call for s in one[0]] == ["K1JT"]
+
+
+def test_fano_rounds_fed_jax_stage_b_exact(wins):
+    """Fed the JAX package's own stage-B outputs (43-jitter schedule),
+    the port's host FEC rounds return exactly the JAX rounds' result:
+    the same lanes, jitters, bytes and cycle counts. This holds the FEC
+    rounds exact apart from the +-1 soft-symbol flips of test_torch_sync."""
+    wi, wq = wins
+    B = wi.shape[0]
+    sA = np.asarray(jmc._stage_a_packed(
+        jnp.asarray(wi), jnp.asarray(wq), jnp.full((B,), 4, jnp.int32),
+        fmin=-110.0, fmax=110.0))
+    wa, cc = np.nonzero(sA[:, 1] != 0)
+    n, G = wa.size, 16
+    lanes = [np.zeros(G, t) for t in (np.int32, np.float32, np.int32,
+                                      np.float32, bool)]
+    lanes[0][:n], lanes[1][:n] = wa, sA[wa, 2, cc]
+    lanes[2][:n] = sA[wa, 3, cc].astype(np.int32)
+    lanes[3][:n], lanes[4][:n] = sA[wa, 4, cc], True
+    pk = jmc._stage_b_packed(
+        jnp.asarray(wi), jnp.asarray(wq), *(jnp.asarray(a) for a in lanes),
+        lagstep=8, iifac=3, quickmode=False, symfac=50, minsync1=0.10,
+        minsync2=0.12, minrms=52.0 * 50 / 64)
+    _, gate, pre_j, pre_syms, deint = (np.asarray(x) for x in pk)
+
+    def fetch(ls):
+        return np.stack([deint[:, g] for g in ls])
+
+    got = pmc._fano_rounds_host_prefetch(gate[:, :n], pre_j[:n],
+                                         pre_syms[:n], fetch, 60, 10000)
+    ref = jmc._fano_rounds_host_prefetch(gate[:, :n], pre_j[:n],
+                                         pre_syms[:n], fetch, 60, 10000)
+    assert got == ref and got
+
+
+def test_fano_rounds_prefetch_defers_past_depth():
+    """A lane whose only decodable attempt lies past the prefetch depth
+    pulls its full column once, and the result equals the JAX package's
+    dense host rounds."""
+    J, G = 8, 4
+    good = _hard("K1JT FN20 37")
+    noise = np.random.default_rng(7).integers(120, 136, 162).astype(np.uint8)
+    deint = np.zeros((J, G, 162), np.uint8)
+    gate = np.zeros((J, G), bool)
+    deint[2, 0] = good
+    gate[2, 0] = True
+    for j in range(6):
+        deint[j, 1] = noise
+        gate[j, 1] = True
+    deint[5, 1] = good
+    deint[[1, 3], 2] = noise
+    gate[[1, 3], 2] = True
+    M = min(pmc.PREFETCH_ATTEMPTS, J)
+    pre_j = np.full((G, M), J, np.int32)
+    pre_syms = np.zeros((G, M, 162), np.uint8)
+    for g in range(G):
+        js = np.nonzero(gate[:, g])[0][:M]
+        pre_j[g, :len(js)] = js
+        pre_syms[g, :len(js)] = deint[js, g]
+    fetched = []
+
+    def fetch(ls):
+        fetched.append(list(ls))
+        return np.stack([deint[:, g] for g in ls])
+
+    got = pmc._fano_rounds_host_prefetch(gate, pre_j, pre_syms, fetch,
+                                         60, 10000)
+    assert got == jmc._fano_rounds_host(gate, deint, 60, 10000)
+    assert fetched == [[1]] and got[1][0] == 5
+
+
+def test_wsprdecoder_matches_jax(wins, jax_host_fec):
+    """The facade on one window (batch of one) against the JAX package's
+    staged WsprDecoder."""
+    from rtlsdr_wsprd_tpu.models.decoder import WsprDecoder as JDecoder
+    from rtlsdr_wsprd_tpu_torch.models.decoder import WsprDecoder
+
+    wi, wq = wins
+    got = WsprDecoder(DecoderOptions(**QUICK), device=CPU).decode(wi[0], wq[0])
+    ref = JDecoder(JOptions(**QUICK)).decode(wi[0], wq[0])
+    assert_spots_match([got], [ref])
+    assert {s.call for s in got} == {"K1JT", "K9AN"}
+
+
+def test_bucket_pipeline_matches_single_bucket(wins, monkeypatch):
+    """Forcing many tiny stage-B buckets (LANE_BUCKETS=(1, 2)), so that
+    bucket k+1 is launched before bucket k's host FEC many times over,
+    gives the same spots as one bucket: a scheduling change only."""
+    wi, wq = wins
+    opts = DecoderOptions(**QUICK)
+    want = pmc.decode_channels(wi, wq, opts, device_batch=3, device=CPU)
+    monkeypatch.setattr(pmc, "LANE_BUCKETS", (1, 2))
+    got = pmc.decode_channels(wi, wq, opts, device_batch=3, device=CPU)
+    assert [[(s.message, s.freq, s.cycles, s.snr, s.sync) for s in ch]
+            for ch in got] == \
+        [[(s.message, s.freq, s.cycles, s.snr, s.sync) for s in ch]
+         for ch in want]
+    assert sum(len(ch) for ch in got) == 3
+
+
+def test_prepare_windows_device_matches_host_feed(wins):
+    """Windows already on the device (the front end's output), padded 3
+    -> 4 rows, decode exactly like the int8 host feed of the same
+    samples: the device planes are the int8 feed's own dequantized
+    rows, so both paths see identical float32 windows."""
+    wi, wq = wins
+    di, dq = (a[:3].clone() for a in
+              pmc.prepare_windows(wi, wq, device_batch=2, device=CPU).arrays)
+    h = pmc.prepare_windows_device(di, dq, device_batch=2)
+    assert h.n_pad == 4
+    got = pmc.decode_channels(None, None, DecoderOptions(**QUICK), windows=h)
+    ref = pmc.decode_channels(wi, wq, DecoderOptions(**QUICK),
+                              device_batch=2, device=CPU)
+
+    def key(spots):
+        return [[(s.message, s.freq, s.dt, s.snr, s.sync, s.cycles)
+                 for s in ch] for ch in spots]
+
+    assert key(got) == key(ref)
+    assert sum(len(ch) for ch in got) == 3
+    with pytest.raises(ValueError):
+        pmc.decode_channels(wi, wq, device=CPU, fec="hybrid")
+
+
+@pytest.mark.slow
+def test_bench_batch_spot_lists_match_jax(jax_host_fec):
+    """The first 32 windows of chip_smoke.py's 512-window batch (the
+    port's copy of bench.py's make_batch, seed 11) through both
+    packages' decode_channels with DecoderOptions() (43-jitter schedule,
+    2 passes) and host FEC on the CPU: equal spot lists in message,
+    jitter and cycles. Prints both counts (run with -s to see them)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    wi, wq, _ = smoke.make_batch(32, seed=11)
+    got = pmc.decode_channels(wi, wq, DecoderOptions(), device_batch=8,
+                              device=CPU, fec="host")
+    ref = jmc.decode_channels(wi, wq, JOptions(), device_batch=8,
+                              fec="host")
+    print(f"\n32 bench windows: JAX CPU {sum(len(ch) for ch in ref)} "
+          f"spots, port CPU {sum(len(ch) for ch in got)} spots")
+    assert [[(s.message, s.jitter, s.cycles) for s in ch] for ch in got] == \
+        [[(s.message, s.jitter, s.cycles) for s in ch] for ch in ref]
+    assert sum(len(ch) for ch in got) > 32
+
+
+def test_resolve_type3_spots_matches_jax():
+    """Re-resolving '<...>' spots rebuilds the same call and message
+    (truncations included) as the JAX package, and leaves other spots
+    and still-unknown hashes alone."""
+    from rtlsdr_wsprd_tpu.models.decoder import Spot as JSpot
+    from rtlsdr_wsprd_tpu.utils.nhash import nhash
+    from rtlsdr_wsprd_tpu_torch.models.decoder import Spot
+    from rtlsdr_wsprd_tpu_torch.utils.hashtable import (
+        WsprHashTable as PTable,
+    )
+
+    call = "PJ4/K1ABCDE"
+    ih = nhash(call)
+    base = dict(freq=14.0971, sync=0.5, snr=-10.0, dt=0.1, drift=0.0,
+                jitter=0, message="<...> FK52UD 37", call="<...>",
+                loc="FK52UD", pwr="37", cycles=10)
+    rows = [dict(ihash=ih), dict(call="K1JT", message="K1JT FN20 37",
+                                 loc="FN20", ihash=-1),
+            dict(ihash=(ih + 1) % 32768)]
+    jt, pt = WsprHashTable(), PTable()
+    jt.put(ih, call)
+    pt.put(ih, call)
+    ref = jmc.resolve_type3_spots([[JSpot(**{**base, **r}) for r in rows]],
+                                  jt)[0]
+    mine = [Spot(**{**base, **r}) for r in rows]
+    got = pmc.resolve_type3_spots([mine], pt)[0]
+    assert [(s.call, s.message) for s in got] == \
+        [(s.call, s.message) for s in ref]
+    assert got[0].call == f"<{call}>"[:12]
+    assert got[1] is mine[1] and got[2] is mine[2]
+
+
+def test_entry_points_default_to_cuda():
+    """device=None means the CUDA card: without one, every entry point
+    raises instead of running on the CPU."""
+    from rtlsdr_wsprd_tpu_torch.device import resolve_device
+    from rtlsdr_wsprd_tpu_torch.frontend import decimate as pdec
+    from rtlsdr_wsprd_tpu_torch.models.decoder import WsprDecoder
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None resolves to it")
+    w = np.zeros((1, 45000), np.float32)
+    raw = np.zeros(6400 * 10, np.uint8)
+    calls = [
+        lambda: resolve_device(None),
+        lambda: pmc.decode_channels(w, w),
+        lambda: pmc.prepare_windows(w, w),
+        lambda: WsprDecoder(),
+        lambda: pdec.decimate_stage1(raw, raw, 5),
+        lambda: pdec.decimate_stage2(w[0], w[0], 5),
+        lambda: pdec.decimate_window(raw, raw),
+        lambda: pdec.StreamingDecimator(),
+        lambda: pdec.BatchedStreamingDecimator(2),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_import_leaves_jax_out():
+    """In a fresh interpreter, importing every module of the port (and
+    chip_smoke.py) loads neither jax nor the JAX package."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import rtlsdr_wsprd_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'rtlsdr_wsprd_tpu'))\n"
+        "print(len(sys.modules), bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_sources_import_no_jax():
+    """No import statement of the port or of chip_smoke.py names jax or
+    the JAX package (an AST scan, so lazy imports count too)."""
+    files = sorted((REPO / "rtlsdr_wsprd_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 20
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            for n in names:
+                assert n.split(".")[0] not in (
+                    "jax", "jaxlib", "rtlsdr_wsprd_tpu"), f"{f}: {n}"
