@@ -5,19 +5,25 @@
 Phases, in order; any failure exits non-zero before the last line:
 
 1. env      torch/CUDA versions, the card's name and power limit, TF32 off.
-2. build    the stage-1/2 polyphase CUDA kernel (nvcc) and the host Fano
-            library (g++), built at the same time from this checkout.
+2. build    the two polyphase CUDA kernels (nvcc: polyphase_tc.cu, the
+            tensor-core stage-1 kernel for uint8 input, and polyphase.cu,
+            the direct form for the rest) and the host Fano library
+            (g++), built at the same time from this checkout.
 3. frontend the main path: a 120 s synthetic raw 2.4 Msps uint8 capture
             streamed in 10 s chunks through BatchedStreamingDecimator (8
             lanes, each fed the same capture), lane 0's window decoded by
-            decode_channels; the kernel's launch count is read around
-            this phase, and the shape of every launch is recorded.
-4. kernel   the kernel against its plain PyTorch version on the card at
-            every shape the main path launched it with (plus a QUANT1
-            stage-1 step and a 100-frame stage-2 call), with the device
-            times of the kernel, the plain version, one torch conv1d call
-            (a yardstick the port never calls) and the card's bound for
-            the same work.
+            decode_channels; each kernel's launch count is read around
+            this phase (every uint8 stage-1 call on polyphase_tc, every
+            stage-2 call on the direct form), and the shape of every
+            launch is recorded.
+4. kernel   each kernel against the plain PyTorch version on the card at
+            every shape the main path launched it with, plus uint8
+            stage-1 calls of 1, 129 and 8,000 frames, one whose rows are
+            not 16-byte aligned, and a 100-frame stage-2 call; with the
+            device times of the kernel, the plain version, one torch
+            conv1d call (a yardstick the port never calls) and the card's
+            bound for the same work. At the 10 s push the tensor-core
+            kernel is also timed with each block shape of TC_TILES.
 5. decode   512 mixed windows through decode_channels (full jitter
             schedule, 2 passes, device_batch=128): one warm-up and three
             timed runs, decode windows/s, every expected message found;
@@ -46,13 +52,19 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # published peaks by card name (NVIDIA data sheets, dense, no sparsity):
-# float32 outside the tensor cores, and device-memory bandwidth
+# float32 outside the tensor cores, TF32 on the tensor cores, and
+# device-memory bandwidth
 PEAKS = (
-    ("H100 PCIe", 51e12, 2.0e12),
-    ("H100 NVL", 60e12, 3.9e12),
-    ("H100", 67e12, 3.35e12),   # SXM5
-    ("H200", 67e12, 4.8e12),
+    ("H100 PCIe", 51e12, 378e12, 2.0e12),
+    ("H100 NVL", 60e12, 378e12, 3.9e12),
+    ("H100", 67e12, 495e12, 3.35e12),   # SXM5
+    ("H200", 67e12, 495e12, 4.8e12),
 )
+
+
+# the tensor-core kernel's blocks timed at the 10 s push: (warps, tiles of
+# 16 input rows per warp)
+TC_TILES = ((8, 1), (4, 2), (8, 2), (4, 4), (8, 4))
 
 
 def log(msg: str) -> None:
@@ -64,10 +76,10 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def card_peaks(name: str) -> tuple[float, float]:
-    for key, flops, bw in PEAKS:
+def card_peaks(name: str) -> tuple[float, float, float]:
+    for key, flops, tf32, bw in PEAKS:
         if key in name:
-            return flops, bw
+            return flops, tf32, bw
     fail(f"no published peaks for card {name!r}")
 
 
@@ -179,7 +191,8 @@ def phase_build():
         took[label] = time.perf_counter() - t0
 
     threads = [threading.Thread(target=run, args=a) for a in (
-        ("polyphase.cu (nvcc)", polyphase.build_kernel),
+        ("polyphase_tc.cu (nvcc)", lambda: polyphase.build_kernel("tc")),
+        ("polyphase.cu (nvcc)", lambda: polyphase.build_kernel("direct")),
         ("hostdsp.cpp (g++)", native.build))]
     for t in threads:
         t.start()
@@ -191,48 +204,69 @@ def phase_build():
         log(f"[build] {label}: {s:.1f} s")
 
 
+def _planes(rng, dt, C, L, offset=0):
+    """uint8 (uniform bytes) or float32 N(0, 10) planes (C, L) on the
+    host; with ``offset`` each row is a view starting that many elements
+    into a (C, L + offset) array."""
+    if dt == "uint8":
+        h = rng.integers(0, 256, (2, C, L + offset), dtype=np.uint8)
+    else:
+        h = rng.normal(0, 10.0, (2, C, L + offset)).astype(np.float32)
+    return h[0], h[1]
+
+
 def phase_kernel(dev, name, main_shapes):
-    """Kernel vs plain at every shape of ``main_shapes`` (the main path's
-    launches, from phase_frontend) and at two smaller calls of the
-    streaming front end; returns one row per shape."""
+    """Each kernel vs plain at every shape of ``main_shapes`` (the main
+    path's launches, from phase_frontend) and at the extra calls the
+    module docstring lists; returns one row per shape."""
+    from rtlsdr_wsprd_tpu_torch.frontend import polyphase
     from rtlsdr_wsprd_tpu_torch.frontend.decimate import STAGE1, STAGE2
     from rtlsdr_wsprd_tpu_torch.frontend.polyphase import (
+        _route,
         polyphase_decimate,
         polyphase_plain,
     )
 
-    peak_flops, peak_bw = card_peaks(name)
+    peak_flops, peak_tf32, peak_bw = card_peaks(name)
     rng = np.random.default_rng(1)
     rows = []
     filters = {"stage1": STAGE1, "stage2": STAGE2}
-    # stage, input dtype, C, L, frames, launches on the main path
-    cases = sorted(((st, dt, C, L, n, k) for (st, dt, C, L, n), k
+
+    def s1(n):
+        return n * STAGE1.R + STAGE1.T - STAGE1.R
+
+    # stage, input dtype, C, L, frames, launches on the main path, offset
+    cases = sorted(((st, dt, C, L, n, k, 0) for (st, dt, C, L, n), k
                     in main_shapes.items()), key=lambda c: (c[0], -c[4]))
-    cases += [("stage1", "uint8", 8, 8000 * STAGE1.R + STAGE1.T - STAGE1.R,
-               8000, 0),
+    cases += [("stage1", "uint8", 8, s1(n), n, 0, 0) for n in (8000, 129, 1)]
+    cases += [("stage1", "uint8", 8, s1(8000), 8000, 0, 1),
               ("stage2", "float32", 8, 100 * STAGE2.R + STAGE2.T - STAGE2.R,
-               100, 0)]
+               100, 0, 0)]
+    headline = max(((st, dt, C, L, n) for st, dt, C, L, n, k, _ in cases
+                    if st == "stage1" and k),
+                   key=lambda c: (main_shapes[c], c[4]), default=None)
     atol = 1e-3
-    for stage, dt, C, L, n, launched in cases:
+    for stage, dt, C, L, n, launched, offset in cases:
         filt = filters[stage]
+        route = _route("cuda", getattr(torch, dt), filt)
         # real taps (stage 2) need 2 FMA per tap and frame, complex 4
         flop_tap = 8 if np.any(filt.gi) else 4
-        label = (f"{stage} {dt} C={C} x {n} frames, L={L} "
-                 f"({launched} launches on the main path)")
-        if dt == "uint8":
-            hI = rng.integers(0, 256, (C, L), dtype=np.uint8)
-            hQ = rng.integers(0, 256, (C, L), dtype=np.uint8)
-        else:
-            hI = rng.normal(0, 10.0, (C, L)).astype(np.float32)
-            hQ = rng.normal(0, 10.0, (C, L)).astype(np.float32)
-        xI = torch.from_numpy(hI).to(dev)
-        xQ = torch.from_numpy(hQ).to(dev)
+        label = (f"{stage} {dt} C={C} x {n} frames, L={L}"
+                 f"{f', rows at a {offset}-element offset' if offset else ''}"
+                 f" ({launched} launches on the main path)")
+        hI, hQ = _planes(rng, dt, C, L, offset)
+        xI = torch.from_numpy(hI).to(dev)[:, offset:]
+        xQ = torch.from_numpy(hQ).to(dev)[:, offset:]
+        before = dict(polyphase_decimate.launches)
         kI, kQ = polyphase_decimate(xI, xQ, filt, n)
+        if polyphase_decimate.launches[route] != before[route] + 1:
+            fail(f"{label}: the call did not launch the {route} kernel")
         pI, pQ = polyphase_plain(xI, xQ, filt, n)
         torch.cuda.synchronize()
         err = max(float((kI - pI).abs().max()), float((kQ - pQ).abs().max()))
         if not (err <= atol):
-            fail(f"kernel vs plain, {label}: max |diff| {err} > {atol}")
+            fail(f"{route} kernel vs plain, {label}: max |diff| {err} > "
+                 f"{atol}")
 
         # yardstick: one conv1d over the centred float planes, weight
         # (2, 2, T) = [[gr, -gi], [gi, gr]], stride R
@@ -252,20 +286,35 @@ def phase_kernel(dev, name, main_shapes):
             xf, g, stride=filt.R))
         nbytes = 2 * C * L * hI.itemsize + 2 * C * n * 4
         flops = flop_tap * filt.T * C * n
-        t_bytes = nbytes / peak_bw * 1e3
-        t_ops = flops / peak_flops * 1e3
-        row = dict(shape=label, stage=stage, dtype=dt, C=C, L=L, frames=n,
-                   launches=launched, max_abs_err=err, atol=atol, ms=ms,
-                   plain_ms=plain_ms, library_ms=lib_ms,
-                   library_max_abs_err=lib_err,
-                   bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes_ms = nbytes / peak_bw * 1e3
+        fp32_core_ms = flops / peak_flops * 1e3
+        # the tensor-core kernel does its work as two TF32 products
+        t_ops = 2 * flops / peak_tf32 * 1e3 if route == "tc" else fp32_core_ms
+        row = dict(shape=label, route=route, stage=stage, dtype=dt, C=C,
+                   L=L, frames=n, row_offset=offset, launches=launched,
+                   max_abs_err=err, atol=atol, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, library_max_abs_err=lib_err,
+                   bytes_ms=bytes_ms, fp32_core_ms=fp32_core_ms,
+                   bound_ms=max(bytes_ms, t_ops),
+                   bound_by="bytes" if bytes_ms >= t_ops else "operations",
                    bytes=nbytes, flop=flops)
+        if (stage, dt, C, L, n) == headline and not offset:
+            tile_ms = {}
+            for tile in TC_TILES:
+                saved, polyphase.TC_TILE = polyphase.TC_TILE, tile
+                try:
+                    tile_ms["x".join(map(str, tile))] = cuda_ms(
+                        lambda: polyphase_decimate(xI, xQ, filt, n))
+                finally:
+                    polyphase.TC_TILE = saved
+            row["tile_ms"] = tile_ms
         rows.append(row)
-        log(f"[kernel] {label}: max|kernel-plain| {err:.3g} (atol {atol}), "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, conv1d "
+        log(f"[kernel] {route} {label}: max|kernel-plain| {err:.3g} (atol "
+            f"{atol}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, conv1d "
             f"{lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']})")
+            f"({row['bound_by']}; bytes {bytes_ms:.4f}, fp32 cores "
+            f"{fp32_core_ms:.4f})"
+            f"{f'; by (warps x row tiles) {tile_ms}' if 'tile_ms' in row else ''}")
         del xI, xQ, xf, lib
     torch.cuda.empty_cache()
     return rows
@@ -273,8 +322,8 @@ def phase_kernel(dev, name, main_shapes):
 
 def phase_frontend(dev, C: int = 8):
     """The main path: raw 120 s capture -> C-lane streaming front end ->
-    decode of lane 0. Returns the kernel launches it made and the count
-    of launches per (stage, input dtype, C, L, frames)."""
+    decode of lane 0. Returns each kernel's launches ({route: count})
+    and the count of launches per (stage, input dtype, C, L, frames)."""
     from rtlsdr_wsprd_tpu_torch.config import SIGNAL_SAMPLES, DecoderOptions
     from rtlsdr_wsprd_tpu_torch.frontend import decimate
     from rtlsdr_wsprd_tpu_torch.frontend.decimate import (
@@ -306,7 +355,8 @@ def phase_frontend(dev, C: int = 8):
         return polyphase_decimate(xI, xQ, filt, n_frames)
 
     decimate.polyphase_decimate = noting
-    polyphase_decimate.launches = 0
+    for route in polyphase_decimate.launches:
+        polyphase_decimate.launches[route] = 0
     try:
         t0 = time.perf_counter()
         fe = BatchedStreamingDecimator(C, device=dev)
@@ -333,10 +383,11 @@ def phase_frontend(dev, C: int = 8):
     spots = decode_channels(i[None], q[None], DecoderOptions(),
                             device_batch=1, device=dev)[0]
     torch.cuda.synchronize()
-    launches = polyphase_decimate.launches
+    launches = dict(polyphase_decimate.launches)
     log(f"[frontend] {C} lanes x 120 s raw -> {bI.shape[1]} samples at "
         f"375 sps in {fe_s:.2f} s ({C * 120 / fe_s:.1f} channel-s per s, "
-        f"host synthesis excluded); polyphase launches {launches}; spots "
+        f"host synthesis excluded); polyphase launches by kernel "
+        f"{launches}; spots "
         f"{[(s.message, round(s.dt, 3), round(s.freq * 1e6 - 1500, 3)) for s in spots]}")
     if len(spots) != 1:
         fail(f"raw capture decoded {len(spots)} spots, want 1")
@@ -345,10 +396,17 @@ def phase_frontend(dev, C: int = 8):
         fail(f"raw capture decoded {s.message!r}")
     if abs(s.dt) >= 0.3 or abs((s.freq * 1e6 - 1500.0) - 30.0) >= 0.5:
         fail(f"raw capture spot off: dt {s.dt}, freq {s.freq}")
-    if launches <= 0:
-        fail("the main path never launched the polyphase kernel")
-    if sum(shapes.values()) != launches or any(len(k) != 5 for k in shapes):
-        fail(f"front-end calls {shapes} do not match {launches} launches")
+    # every uint8 stage-1 call on the tensor-core kernel, every stage-2
+    # call on the direct form, and no other call
+    want = {"tc": sum(k for key, k in shapes.items()
+                      if key[:2] == ("stage1", "uint8")),
+            "direct": sum(k for key, k in shapes.items()
+                          if key[0] == "stage2")}
+    if (launches != want or not all(launches.values())
+            or sum(shapes.values()) != sum(want.values())
+            or any(len(k) != 5 for k in shapes)):
+        fail(f"front-end calls {shapes} do not match launches {launches}: "
+             f"want {want}")
     log(f"[frontend] launches by (stage, dtype, C, L, frames): "
         f"{sorted(shapes.items())}")
     return launches, shapes
@@ -448,23 +506,28 @@ def main() -> None:
     launches, shapes = phase_frontend(dev)
     rows = phase_kernel(dev, name, shapes)
     phase_decode(dev, card)
-    # headline: the stage-1 shape the main path launched most (10 s push)
-    main_row = max((r for r in rows if r["stage"] == "stage1"),
-                   key=lambda r: (r["launches"], r["frames"]))
-    kernels = [{
-        "name": "polyphase_decimate",
-        "route": "cuda",
-        "source": "rtlsdr_wsprd_tpu_torch/frontend/csrc/polyphase.cu",
-        "replaces": "rtlsdr_wsprd_tpu/frontend/pallas_decimate.py:78",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "shapes": rows,
-    }]
+    kernels = []
+    for kname, route, src in (
+            ("polyphase_tc", "tc", "polyphase_tc.cu"),
+            ("polyphase_decimate", "direct", "polyphase.cu")):
+        mine = [r for r in rows if r["route"] == route]
+        # headline: the shape the main path launched this kernel with
+        # most (the 10 s push for tc, its stage-2 call for direct)
+        main_row = max(mine, key=lambda r: (r["launches"], r["frames"]))
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": f"rtlsdr_wsprd_tpu_torch/frontend/csrc/{src}",
+            "replaces": "rtlsdr_wsprd_tpu/frontend/pallas_decimate.py:78",
+            "launches": launches[route],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": main_row["ms"],
+            "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"],
+            "shapes": mine,
+        })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -5,8 +5,10 @@ H100. The JAX package stays beside it as the reference; this package
 imports neither JAX nor anything of it and keeps its own copies of the
 framework-free modules (constants, codecs, filter design, synthesis).
 
-* ``frontend`` — the 2.4 Msps -> 375 sps two-stage polyphase decimator;
-                 both stages run through one hand-written CUDA kernel
+* ``frontend`` — the 2.4 Msps -> 375 sps two-stage polyphase decimator
+                 on two hand-written CUDA kernels: uint8 stage 1 on the
+                 tensor cores (``frontend/csrc/polyphase_tc.cu``), stage
+                 2 and float32 input in direct form
                  (``frontend/csrc/polyphase.cu``).
 * ``ops``      — STFT, candidate search, coarse grid, lane correlators
                  and coherent subtraction, as PyTorch tensor code.

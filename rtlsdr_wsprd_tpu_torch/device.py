@@ -31,7 +31,7 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-_CONSTS: dict[tuple[int, torch.device], tuple[np.ndarray, torch.Tensor]] = {}
+_CONSTS: dict[tuple, tuple[tuple, torch.Tensor]] = {}
 
 
 def const(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -39,10 +39,19 @@ def const(a: np.ndarray, device: torch.device) -> torch.Tensor:
     once (a host->device copy per call would stall the launch queue).
     ``convert.load_state_dict`` rewrites tables in place and then calls
     ``clear_consts``."""
-    key = (id(a), device)
+    return derived_const(np.asarray, (a,), device)
+
+
+def derived_const(fn, srcs: tuple[np.ndarray, ...],
+                  device: torch.device) -> torch.Tensor:
+    """``fn(*srcs)`` (a numpy table) as a tensor on ``device``, computed
+    and uploaded once until ``clear_consts``: a table derived from live
+    tables follows them when ``convert.load_state_dict`` rewrites them."""
+    key = (fn, *map(id, srcs), device)
     hit = _CONSTS.get(key)
     if hit is None:
-        hit = (a, torch.from_numpy(np.ascontiguousarray(a)).to(device))
+        t = torch.from_numpy(np.ascontiguousarray(fn(*srcs))).to(device)
+        hit = (srcs, t)   # srcs kept alive so their ids stay theirs
         _CONSTS[key] = hit
     return hit[1]
 

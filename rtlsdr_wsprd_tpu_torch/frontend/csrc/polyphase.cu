@@ -1,10 +1,11 @@
 // Polyphase complex FIR decimator for Hopper (sm_90a), direct form.
 //
 // Replaces rtlsdr_wsprd_tpu/frontend/pallas_decimate.py:
-// decimate_stage1_pallas (the TPU kernel), and serves both stages of
-// the port's front end through one code path:
+// decimate_stage1_pallas (the TPU kernel) beside polyphase_tc.cu, which
+// takes the raw front end's uint8 stage-1 calls. This one takes every
+// other call, through one code path:
 //   stage 1: R = 80, T = 640 complex taps (fs/4 mixer folded in),
-//            uint8 (centred on load, -128) or float32 input;
+//            float32 input (uint8, centred on load, -128, also works);
 //   stage 2: R = 80, T = 2400 real taps (gi = 0), float32 input.
 //
 // For every row c and output frame m, with conv-ordered taps g = gr + i gi:

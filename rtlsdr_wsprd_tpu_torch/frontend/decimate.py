@@ -2,7 +2,8 @@
 
 The PyTorch counterpart of ``rtlsdr_wsprd_tpu/frontend/decimate.py``.
 Both stages go through ``polyphase.polyphase_decimate``: on the card
-that is the hand-written CUDA kernel, on the CPU its plain version.
+that is a hand-written CUDA kernel (the tensor-core one for uint8
+stage 1, the direct form for the rest), on the CPU the plain version.
 uint8 RTL bytes are centred inside the stage-1 call (in the kernel, on
 load), so raw bytes cross the host->device link at 1 byte/sample.
 

@@ -1,20 +1,22 @@
-"""Polyphase complex FIR decimation: the hand-written CUDA kernel and its
-plain PyTorch version.
+"""Polyphase complex FIR decimation: two hand-written CUDA kernels and
+their plain PyTorch version.
 
 ``polyphase_decimate`` is the one wrapper both front-end stages call.
 For a CPU tensor it runs the plain version; for a CUDA tensor it
-launches ``csrc/polyphase.cu`` or raises: there is no fallback.
+launches one of two kernels (``_route`` picks) or raises: there is no
+fallback.
 
-Kernel note. It replaces ``rtlsdr_wsprd_tpu/frontend/pallas_decimate.py``
-``decimate_stage1_pallas``. Stage 1 (R=80, T=640 complex taps) costs
-5,120 FLOP per output frame against 160 B of uint8 I/Q read: a 120 s
-channel is 3.6 M frames, 18.4 GFLOP and 576 MB, so on an H100 the fp32
-CUDA-core rate bounds it (about 0.28 ms per channel-window at the SXM
-part's 67 TFLOP/s) rather than HBM (about 0.17 ms at 3.35 TB/s). The
-kernel is a direct form (one warp per output frame, lanes split the
-taps, coalesced reads, taps in shared memory, warp-shuffle reduction);
-unlike the Pallas kernel's im2col it replicates no input sample. See
-the source for details.
+- ``csrc/polyphase_tc.cu``, the tensor-core kernel: uint8 planes through
+  the stage-1 filter (R=80, T=640 complex taps), the raw 2.4 Msps
+  front end. It computes the partial product below as a TF32 GEMM on
+  the tensor cores, with the taps split into TF32 hi + lo parts on the
+  host (``tf32_split``) so the result keeps float32 accuracy.
+- ``csrc/polyphase.cu``, the direct form: every other call (stage 2,
+  float32 input). One warp per output frame, lanes over the taps.
+
+Both replace ``rtlsdr_wsprd_tpu/frontend/pallas_decimate.py``
+``decimate_stage1_pallas``; each source holds its own note on what
+bounds it on an H100 and what its design does about that.
 
 The plain version is the partial-product form of the JAX package's
 ``_polyphase_pp``: with T = tpp * R, the input reshapes to rows of R
@@ -28,18 +30,34 @@ import ctypes
 import os
 import shutil
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..buildlib import build_shared
-from ..device import const
+from ..device import const, derived_const
 
-_CU_SOURCE = Path(__file__).resolve().parent / "csrc" / "polyphase.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-_lib = None
+_vp, _ll, _ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# route -> (library name, source, C function, its argument types)
+_KERNELS = {
+    "direct": ("polyphase", _CSRC / "polyphase.cu", "polyphase_decimate",
+               [_vp, _vp, _ci, _ll, _ll, _vp, _vp, _ci, _ci, _ll, _vp, _vp,
+                _ll, _vp]),
+    "tc": ("polyphase_tc", _CSRC / "polyphase_tc.cu", "polyphase_tc_decimate",
+           [_vp, _vp, _ll, _ll, _ci, _vp, _ci, _ci, _ll, _vp, _vp, _ll,
+            _vp]),
+}
+# the tensor-core kernel's filter (T, R), and its block: (warps, tiles
+# of 16 input rows per warp); a block yields 16 * warps * tiles - 7 frames
+TC_SHAPE = (640, 80)
+TC_TILE = (8, 2)
+
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -50,22 +68,21 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-def build_kernel() -> str:
-    """Build (if needed) and load the CUDA library; returns its path."""
-    return _load_kernel()._name
+def build_kernel(route: str) -> str:
+    """Build (if needed) and load one kernel's library, ``"direct"`` or
+    ``"tc"``; returns its path."""
+    return _load_kernel(route)._name
 
 
-def _load_kernel():
-    global _lib
-    if _lib is None:
-        path = build_shared("polyphase", _nvcc(), [_CU_SOURCE], NVCC_FLAGS)
-        lib = ctypes.CDLL(str(path))
-        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.polyphase_decimate.argtypes = [
-            vp, vp, ci, ll, ll, vp, vp, ci, ci, ll, vp, vp, ll, vp]
-        lib.polyphase_decimate.restype = ci
-        _lib = lib
-    return _lib
+def _load_kernel(route: str):
+    lib = _libs.get(route)
+    if lib is None:
+        name, src, fn, argtypes = _KERNELS[route]
+        lib = ctypes.CDLL(str(build_shared(name, _nvcc(), [src], NVCC_FLAGS)))
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = _ci
+        _libs[route] = lib
+    return lib
 
 
 def pp_split(g: np.ndarray, R: int) -> tuple[np.ndarray, np.ndarray]:
@@ -86,10 +103,66 @@ def pp_split(g: np.ndarray, R: int) -> tuple[np.ndarray, np.ndarray]:
     return top, bot
 
 
+def tf32_round(x: np.ndarray) -> np.ndarray:
+    """float32 -> the nearest TF32 value (10 mantissa bits, ties away
+    from zero, as ``cvt.rna.tf32.f32``), kept as float32 with its low 13
+    mantissa bits zero."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def tf32_split(htop: np.ndarray, hbot: np.ndarray):
+    """B = [Htop; Hbot] (2R, 2*tpp) -> (B_hi, B_lo), both exact in TF32:
+    B_hi = tf32(B), B_lo = tf32(B - B_hi). A @ B_hi + A @ B_lo keeps
+    about 22 bits of each tap where one TF32 product keeps 11."""
+    b = np.concatenate([htop, hbot]).astype(np.float32)
+    hi = tf32_round(b)
+    return hi, tf32_round(b - hi)
+
+
+def tc_fragments(htop: np.ndarray, hbot: np.ndarray) -> np.ndarray:
+    """The tensor-core kernel's operand table: B_hi and B_lo of
+    ``tf32_split`` in ``mma.m16n8k8`` B-fragment order, float32
+    [K/8, N/8, 32 lanes, 4]. For k-step s, column tile j and lane
+    l = 4*g + t the four values are B_hi[8s+t, 8j+g], B_hi[8s+t+4, 8j+g],
+    B_lo[8s+t, 8j+g], B_lo[8s+t+4, 8j+g]: one 16-byte load per lane.
+    Columns are zero-padded to a multiple of 8."""
+    parts = []
+    for b in tf32_split(htop, hbot):
+        K, N = b.shape
+        b = np.pad(b, ((0, 0), (0, -N % 8)))
+        # [s, kk, j, g] -> [s, j, g, kk]
+        b = b.reshape(K // 8, 8, -1, 8).transpose(0, 2, 3, 1)
+        parts += [b[..., :4], b[..., 4:]]     # kk = t and t + 4
+    f = np.stack(parts, axis=-1)              # [s, j, g, t, 4]
+    return np.ascontiguousarray(f.reshape(f.shape[0], f.shape[1], 32, 4))
+
+
+class FilterTensors(NamedTuple):
+    gr: torch.Tensor       # conv-ordered taps: the direct-form kernel's
+    gi: torch.Tensor
+    htop: torch.Tensor     # partial-product matrices: the plain version's
+    hbot: torch.Tensor
+    b_hi: torch.Tensor     # tf32_split([Htop; Hbot])
+    b_lo: torch.Tensor
+    b_frag: torch.Tensor   # tc_fragments: the tensor-core kernel's
+
+
+def _split_hi(htop, hbot):
+    return tf32_split(htop, hbot)[0]
+
+
+def _split_lo(htop, hbot):
+    return tf32_split(htop, hbot)[1]
+
+
 class PolyphaseFilter:
     """One decimating filter: conv-ordered complex taps ``g`` (T,) and
-    the decimation R. Holds the kernel's taps (gr, gi) and the plain
-    version's partial-product matrices (Htop, Hbot) as numpy tables."""
+    the decimation R. Holds the direct-form kernel's taps (gr, gi) and
+    the partial-product matrices (Htop, Hbot) as numpy tables; the
+    tensor-core kernel's split tables are derived from the live
+    Htop/Hbot on their way to the device."""
 
     def __init__(self, g: np.ndarray, R: int):
         g = np.asarray(g)
@@ -102,10 +175,16 @@ class PolyphaseFilter:
         self.gi = np.ascontiguousarray(np.imag(g), np.float32)
         self.htop, self.hbot = pp_split(g, R)
 
-    def tensors(self, device: torch.device):
-        """(gr, gi, Htop, Hbot) on ``device``."""
-        return tuple(const(a, device)
-                     for a in (self.gr, self.gi, self.htop, self.hbot))
+    def tensors(self, device: torch.device) -> FilterTensors:
+        """Every table of this filter on ``device``; after
+        ``convert.load_state_dict`` the derived ones follow the new taps."""
+        hh = (self.htop, self.hbot)
+        return FilterTensors(
+            const(self.gr, device), const(self.gi, device),
+            const(self.htop, device), const(self.hbot, device),
+            derived_const(_split_hi, hh, device),
+            derived_const(_split_lo, hh, device),
+            derived_const(tc_fragments, hh, device))
 
 
 def _center_f32(x: torch.Tensor) -> torch.Tensor:
@@ -120,14 +199,14 @@ def polyphase_plain(xI: torch.Tensor, xQ: torch.Tensor,
     """Plain PyTorch version: (..., L) uint8|float32 planar -> planar
     float32 (..., n_frames), L >= n_frames*R + T - R."""
     R, tpp = filt.R, filt.tpp
-    _, _, htop, hbot = filt.tensors(xI.device)
+    tabs = filt.tensors(xI.device)
     need = (n_frames + tpp - 1) * R
     fI = _center_f32(xI[..., :need])
     fQ = _center_f32(xQ[..., :need])
     lead = fI.shape[:-1]
     rowsI = fI.reshape(*lead, n_frames + tpp - 1, R)
     rowsQ = fQ.reshape(*lead, n_frames + tpp - 1, R)
-    P = rowsI @ htop + rowsQ @ hbot
+    P = rowsI @ tabs.htop + rowsQ @ tabs.hbot
     yI = P[..., 0:n_frames, 0]
     yQ = P[..., 0:n_frames, 1]
     for t in range(1, tpp):
@@ -136,13 +215,23 @@ def polyphase_plain(xI: torch.Tensor, xQ: torch.Tensor,
     return yI, yQ
 
 
+def _route(device_type: str, dtype: torch.dtype,
+           filt: PolyphaseFilter) -> str:
+    """The kernel a call takes: ``"tc"`` for uint8 planes on CUDA through
+    a complex-tap filter of TC_SHAPE (stage 1), else ``"direct"``."""
+    if (device_type == "cuda" and dtype == torch.uint8
+            and (filt.T, filt.R) == TC_SHAPE and bool(np.any(filt.gi))):
+        return "tc"
+    return "direct"
+
+
 def polyphase_decimate(xI: torch.Tensor, xQ: torch.Tensor,
                        filt: PolyphaseFilter, n_frames: int):
     """(L,) or (C, L) planar uint8|float32 -> planar float32 (C?, n_frames).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (any row stride, unit sample stride) and count the launch in
-    ``polyphase_decimate.launches``."""
+    ``_route`` names (any row stride, unit sample stride) and count the
+    launch in ``polyphase_decimate.launches[route]``."""
     if xI.device != xQ.device:
         raise ValueError("xI and xQ on different devices")
     if xI.device.type == "cpu":
@@ -170,17 +259,28 @@ def polyphase_decimate(xI: torch.Tensor, xQ: torch.Tensor,
                       device=xI.device)
     if n_frames <= 0 or rows == 0:
         return (out[0, 0], out[1, 0]) if single else (out[0], out[1])
-    gr, gi, _, _ = filt.tensors(xI.device)
-    lib = _load_kernel()
+    route = _route(xI.device.type, xI.dtype, filt)
+    tabs = filt.tensors(xI.device)
+    lib = _load_kernel(route)
     stream = torch.cuda.current_stream(xI.device).cuda_stream
-    rc = lib.polyphase_decimate(
-        rI.data_ptr(), rQ.data_ptr(), int(xI.dtype == torch.uint8), rows,
-        rI.stride(0), gr.data_ptr(), gi.data_ptr(), filt.T, filt.R,
-        n_frames, out[0].data_ptr(), out[1].data_ptr(), n_frames, stream)
+    if route == "tc":
+        # 16-byte loads where both planes' rows start 16-byte aligned
+        vec = int((rI.data_ptr() | rQ.data_ptr() | rI.stride(0)) % 16 == 0)
+        rc = lib.polyphase_tc_decimate(
+            rI.data_ptr(), rQ.data_ptr(), rows, rI.stride(0), vec,
+            tabs.b_frag.data_ptr(), *TC_TILE, n_frames,
+            out[0].data_ptr(), out[1].data_ptr(), n_frames, stream)
+    else:
+        rc = lib.polyphase_decimate(
+            rI.data_ptr(), rQ.data_ptr(), int(xI.dtype == torch.uint8), rows,
+            rI.stride(0), tabs.gr.data_ptr(), tabs.gi.data_ptr(), filt.T,
+            filt.R, n_frames, out[0].data_ptr(), out[1].data_ptr(), n_frames,
+            stream)
     if rc != 0:
-        raise RuntimeError(f"polyphase kernel launch failed: CUDA error {rc}")
-    polyphase_decimate.launches += 1
+        raise RuntimeError(f"polyphase {route} kernel launch failed: CUDA "
+                           f"error {rc}")
+    polyphase_decimate.launches[route] += 1
     return (out[0, 0], out[1, 0]) if single else (out[0], out[1])
 
 
-polyphase_decimate.launches = 0
+polyphase_decimate.launches = {"tc": 0, "direct": 0}

@@ -245,7 +245,7 @@ def test_wrapper_takes_plain_version_only_on_cpu():
     n = 20
     L = n * R1 + STAGE1_TAPS - R1
     x = torch.from_numpy(rng.integers(0, 256, (2, L), dtype=np.uint8))
-    before = polyphase_decimate.launches
+    before = dict(polyphase_decimate.launches)
     a = polyphase_decimate(x, x, pdec.STAGE1, n)
     b = polyphase_plain(x, x, pdec.STAGE1, n)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
@@ -256,22 +256,31 @@ def test_wrapper_takes_plain_version_only_on_cpu():
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_cuda():
-    """The hand-written CUDA kernel against its plain version on the
-    card, uint8 stage 1 and float32 stage 2: within 1e-3 (float32 sums
-    in another order at +-128 input scale). Runs only with a card."""
+    """Both hand-written CUDA kernels against the plain version on the
+    card: the tensor-core kernel on uint8 stage 1 (aligned rows, and
+    rows at a 1-byte offset), the direct form on float32 stage 1 and
+    stage 2, each call counted on its own kernel; within 1e-3 (float32
+    sums in another order at +-128 input scale). Runs only with a
+    card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (chip_smoke.py runs this check there)")
     rng = np.random.default_rng(3)
-    for filt, n, u8 in ((pdec.STAGE1, 8000, True), (pdec.STAGE2, 100, False)):
+    for filt, n, u8, off, route in (
+            (pdec.STAGE1, 8000, True, 0, "tc"),
+            (pdec.STAGE1, 129, True, 1, "tc"),
+            (pdec.STAGE1, 300, False, 0, "direct"),
+            (pdec.STAGE2, 100, False, 0, "direct")):
         L = n * filt.R + filt.T - filt.R
         if u8:
-            h = rng.integers(0, 256, (2, 8, L), dtype=np.uint8)
+            h = rng.integers(0, 256, (2, 8, L + off), dtype=np.uint8)
         else:
-            h = rng.normal(0, 10, (2, 8, L)).astype(np.float32)
-        xI, xQ = (torch.from_numpy(a).cuda() for a in h)
-        before = polyphase_decimate.launches
+            h = rng.normal(0, 10, (2, 8, L + off)).astype(np.float32)
+        xI, xQ = (torch.from_numpy(a).cuda()[:, off:] for a in h)
+        before = dict(polyphase_decimate.launches)
         kI, kQ = polyphase_decimate(xI, xQ, filt, n)
-        assert polyphase_decimate.launches == before + 1
+        other = "direct" if route == "tc" else "tc"
+        assert polyphase_decimate.launches[route] == before[route] + 1
+        assert polyphase_decimate.launches[other] == before[other]
         pI, pQ = polyphase_plain(xI, xQ, filt, n)
         torch.cuda.synchronize()
         torch.testing.assert_close(kI, pI, rtol=0, atol=1e-3)
