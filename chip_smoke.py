@@ -19,11 +19,11 @@ Phases, in order; any failure exits non-zero before the last line:
 4. kernel   each kernel against the plain PyTorch version on the card at
             every shape the main path launched it with, plus uint8
             stage-1 calls of 1, 129 and 8,000 frames, one whose rows are
-            not 16-byte aligned, and a 100-frame stage-2 call; with the
+            not 16-byte aligned, a float32 stage-1 call of 8,000 frames
+            (the direct form) and a 100-frame stage-2 call; with the
             device times of the kernel, the plain version, one torch
             conv1d call (a yardstick the port never calls) and the card's
-            bound for the same work. At the 10 s push the tensor-core
-            kernel is also timed with each block shape of TC_TILES.
+            bound for the same work.
 5. decode   512 mixed windows through decode_channels (full jitter
             schedule, 2 passes, device_batch=128): one warm-up and three
             timed runs, decode windows/s, every expected message found;
@@ -60,11 +60,6 @@ PEAKS = (
     ("H100", 67e12, 495e12, 3.35e12),   # SXM5
     ("H200", 67e12, 495e12, 4.8e12),
 )
-
-
-# the tensor-core kernel's blocks timed at the 10 s push: (warps, tiles of
-# 16 input rows per warp)
-TC_TILES = ((8, 1), (4, 2), (8, 2), (4, 4), (8, 4))
 
 
 def log(msg: str) -> None:
@@ -219,7 +214,6 @@ def phase_kernel(dev, name, main_shapes):
     """Each kernel vs plain at every shape of ``main_shapes`` (the main
     path's launches, from phase_frontend) and at the extra calls the
     module docstring lists; returns one row per shape."""
-    from rtlsdr_wsprd_tpu_torch.frontend import polyphase
     from rtlsdr_wsprd_tpu_torch.frontend.decimate import STAGE1, STAGE2
     from rtlsdr_wsprd_tpu_torch.frontend.polyphase import (
         _route,
@@ -240,11 +234,9 @@ def phase_kernel(dev, name, main_shapes):
                     in main_shapes.items()), key=lambda c: (c[0], -c[4]))
     cases += [("stage1", "uint8", 8, s1(n), n, 0, 0) for n in (8000, 129, 1)]
     cases += [("stage1", "uint8", 8, s1(8000), 8000, 0, 1),
+              ("stage1", "float32", 8, s1(8000), 8000, 0, 0),
               ("stage2", "float32", 8, 100 * STAGE2.R + STAGE2.T - STAGE2.R,
                100, 0, 0)]
-    headline = max(((st, dt, C, L, n) for st, dt, C, L, n, k, _ in cases
-                    if st == "stage1" and k),
-                   key=lambda c: (main_shapes[c], c[4]), default=None)
     atol = 1e-3
     for stage, dt, C, L, n, launched, offset in cases:
         filt = filters[stage]
@@ -298,23 +290,12 @@ def phase_kernel(dev, name, main_shapes):
                    bound_ms=max(bytes_ms, t_ops),
                    bound_by="bytes" if bytes_ms >= t_ops else "operations",
                    bytes=nbytes, flop=flops)
-        if (stage, dt, C, L, n) == headline and not offset:
-            tile_ms = {}
-            for tile in TC_TILES:
-                saved, polyphase.TC_TILE = polyphase.TC_TILE, tile
-                try:
-                    tile_ms["x".join(map(str, tile))] = cuda_ms(
-                        lambda: polyphase_decimate(xI, xQ, filt, n))
-                finally:
-                    polyphase.TC_TILE = saved
-            row["tile_ms"] = tile_ms
         rows.append(row)
         log(f"[kernel] {route} {label}: max|kernel-plain| {err:.3g} (atol "
             f"{atol}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, conv1d "
             f"{lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}; bytes {bytes_ms:.4f}, fp32 cores "
-            f"{fp32_core_ms:.4f})"
-            f"{f'; by (warps x row tiles) {tile_ms}' if 'tile_ms' in row else ''}")
+            f"{fp32_core_ms:.4f})")
         del xI, xQ, xf, lib
     torch.cuda.empty_cache()
     return rows

@@ -3,19 +3,19 @@
 // Replaces rtlsdr_wsprd_tpu/frontend/pallas_decimate.py:
 // decimate_stage1_pallas (the TPU kernel) beside polyphase_tc.cu, which
 // takes the raw front end's uint8 stage-1 calls. This one takes every
-// other call, through one code path:
-//   stage 1: R = 80, T = 640 complex taps (fs/4 mixer folded in),
-//            float32 input (uint8, centred on load, -128, also works);
-//   stage 2: R = 80, T = 2400 real taps (gi = 0), float32 input.
+// float32 call, through one code path:
+//   stage 1: R = 80, T = 640 complex taps (fs/4 mixer folded in);
+//   stage 2: R = 80, T = 2400 real taps (gi = 0).
 //
 // For every row c and output frame m, with conv-ordered taps g = gr + i gi:
 //   yI[c, m] = sum_k gr[k] xI[c, R m + k] - gi[k] xQ[c, R m + k]
 //   yQ[c, m] = sum_k gi[k] xI[c, R m + k] + gr[k] xQ[c, R m + k]
 //
 // Bound on an H100: stage 1 costs 640 taps x 4 FMA = 5,120 FLOP per output
-// frame and reads 160 B of uint8 I/Q, i.e. 32 FLOP per input byte, well
-// above the card's ~20 FLOP/B fp32 ridge (67 TFLOP/s over 3.35 TB/s on the
-// SXM part). So the FP32 CUDA-core rate bounds it, not HBM.
+// frame and reads 640 B of float32 I/Q, 8 FLOP per input byte; stage 2
+// costs 2,400 x 2 FMA = 9,600 FLOP per frame and reads 640 B, 15 FLOP per
+// byte. Both sit under the card's ~20 FLOP/B fp32 ridge (67 TFLOP/s over
+// 3.35 TB/s on the SXM part), so HBM bounds them, not the FP32 cores.
 //
 // Design against that bound. The Pallas kernel im2cols each 512-frame
 // block into VMEM, which replays every input sample tpp = 8 times into
@@ -35,7 +35,6 @@
 // caller's stream, does not synchronise and allocates nothing; it
 // returns cudaGetLastError() so a refused launch is reported.
 
-#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
@@ -44,15 +43,8 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kFramesPerBlock = 128;
 
-__device__ __forceinline__ float load_sample(const uint8_t* p) {
-  return static_cast<float>(*p) - 128.0f;
-}
-
-__device__ __forceinline__ float load_sample(const float* p) { return *p; }
-
-template <typename In>
 __global__ void __launch_bounds__(kThreads)
-polyphase_kernel(const In* __restrict__ xI, const In* __restrict__ xQ,
+polyphase_kernel(const float* __restrict__ xI, const float* __restrict__ xQ,
                  long long in_stride, const float* __restrict__ gr,
                  const float* __restrict__ gi, int T, int R,
                  long long n_frames, float* __restrict__ yI,
@@ -67,20 +59,20 @@ polyphase_kernel(const In* __restrict__ xI, const In* __restrict__ xQ,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long c = blockIdx.y;
-  const In* rowI = xI + c * in_stride;
-  const In* rowQ = xQ + c * in_stride;
+  const float* rowI = xI + c * in_stride;
+  const float* rowQ = xQ + c * in_stride;
   const long long m0 = static_cast<long long>(blockIdx.x) * kFramesPerBlock;
 
   for (int f = warp; f < kFramesPerBlock; f += kWarps) {
     const long long m = m0 + f;
     if (m >= n_frames) break;
-    const In* pI = rowI + m * R;
-    const In* pQ = rowQ + m * R;
+    const float* pI = rowI + m * R;
+    const float* pQ = rowQ + m * R;
     float aI = 0.0f;
     float aQ = 0.0f;
     for (int k = lane; k < T; k += 32) {
-      const float xi = load_sample(pI + k);
-      const float xq = load_sample(pQ + k);
+      const float xi = pI[k];
+      const float xq = pQ[k];
       const float r = s_taps[k];
       const float im = s_taps[T + k];
       aI = fmaf(r, xi, aI);
@@ -100,56 +92,39 @@ polyphase_kernel(const In* __restrict__ xI, const In* __restrict__ xQ,
   }
 }
 
-template <typename In>
-int launch(const void* xI, const void* xQ, long long rows,
-           long long in_stride, const float* gr, const float* gi, int T,
-           int R, long long n_frames, float* yI, float* yQ,
-           long long out_stride, cudaStream_t stream) {
+}  // namespace
+
+extern "C" {
+
+// xI/xQ: float32 (rows, >= n_frames*R + T - R) planar input, row stride
+// in_stride elements. gr/gi: float32[T] conv-ordered taps, T a multiple
+// of R. yI/yQ: float32 outputs, row stride out_stride elements.
+// Returns 0 on a good launch, else the CUDA error code.
+int polyphase_decimate(const void* xI, const void* xQ, long long rows,
+                       long long in_stride, const void* gr, const void* gi,
+                       int T, int R, long long n_frames, void* yI, void* yQ,
+                       long long out_stride, void* stream) {
+  if (rows <= 0 || n_frames <= 0) return 0;
+  if (rows > 65535 || T <= 0 || R <= 0 || T % R != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const size_t smem = 2 * static_cast<size_t>(T) * sizeof(float);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        polyphase_kernel<In>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    const cudaError_t e = cudaFuncSetAttribute(
+        polyphase_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   dim3 grid(static_cast<unsigned>((n_frames + kFramesPerBlock - 1) /
                                   kFramesPerBlock),
             static_cast<unsigned>(rows));
-  polyphase_kernel<In><<<grid, kThreads, smem, stream>>>(
-      static_cast<const In*>(xI), static_cast<const In*>(xQ), in_stride, gr,
-      gi, T, R, n_frames, yI, yQ, out_stride);
+  polyphase_kernel<<<grid, kThreads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xI), static_cast<const float*>(xQ),
+      in_stride, static_cast<const float*>(gr), static_cast<const float*>(gi),
+      T, R, n_frames, static_cast<float*>(yI), static_cast<float*>(yQ),
+      out_stride);
   return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-extern "C" {
-
-// xI/xQ: (rows, >= n_frames*R + T - R) planar input, row stride in_stride
-// elements; is_u8 = 1 for uint8 (centred on load), 0 for float32.
-// gr/gi: float32[T] conv-ordered taps, T a multiple of R.
-// yI/yQ: float32 outputs, row stride out_stride elements.
-// Returns 0 on a good launch, else the CUDA error code.
-int polyphase_decimate(const void* xI, const void* xQ, int is_u8,
-                       long long rows, long long in_stride, const void* gr,
-                       const void* gi, int T, int R, long long n_frames,
-                       void* yI, void* yQ, long long out_stride,
-                       void* stream) {
-  if (rows <= 0 || n_frames <= 0) return 0;
-  if (rows > 65535 || T <= 0 || R <= 0 || T % R != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* g_r = static_cast<const float*>(gr);
-  const float* g_i = static_cast<const float*>(gi);
-  float* y_i = static_cast<float*>(yI);
-  float* y_q = static_cast<float*>(yQ);
-  if (is_u8) {
-    return launch<uint8_t>(xI, xQ, rows, in_stride, g_r, g_i, T, R, n_frames,
-                           y_i, y_q, out_stride, s);
-  }
-  return launch<float>(xI, xQ, rows, in_stride, g_r, g_i, T, R, n_frames, y_i,
-                       y_q, out_stride, s);
 }
 
 }  // extern "C"

@@ -38,9 +38,9 @@
 // - One block per (row c, tile of kRows input rows). Its kWarps warps own
 //   kMTiles tiles of 16 rows each: kRows = 16 kWarps kMTiles input rows
 //   yield kRows - 7 output frames, and the grid is (ceil(n / (kRows - 7)),
-//   C). polyphase.py's TC_TILE picks (kWarps, kMTiles): (8, 2), 256 rows
-//   and 249 frames a block, was the fastest of five shapes at the 10 s
-//   push (9,512 blocks; 264 at 8,000 frames).
+//   C). (kWarps, kMTiles) = (8, 2), 256 rows and 249 frames a block, was
+//   the fastest of five shapes timed at the 10 s push (PERF.md; 9,512
+//   blocks there, 264 at 8,000 frames).
 // - The A tile sits in shared memory as the raw bytes, in rows of 176
 //   bytes (160 used, 16 of padding, so the eight rows that one fragment
 //   load touches fall in distinct banks). Each 16-byte chunk is stored
@@ -83,6 +83,13 @@ constexpr int kLdA = kK + 16;      // A row in shared memory, bytes
 constexpr int kLdP = kN + 1;       // P row in shared memory, floats
 constexpr int kChunks = kR / 16;   // 16-byte chunks per plane row
 constexpr uint32_t kPad = 0x80808080u;  // four bytes of 128: centred 0
+constexpr int kWarps = 8;          // warps per block
+constexpr int kMTiles = 2;         // tiles of 16 input rows per warp
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = kWarps * kMTiles * 16;  // input rows per block
+constexpr int kFrames = kRows - (kTpp - 1);   // output frames per block
+constexpr int kSmem = kRows * kLdA;           // the A tile, bytes
+static_assert(kSmem <= 48 * 1024, "no opt-in shared memory needed");
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          float b0, float b1) {
@@ -114,16 +121,12 @@ __device__ __forceinline__ uint4 transpose4x4(uint4 v) {
       __byte_perm(hi01, hi23, 0x5410), __byte_perm(hi01, hi23, 0x7632));
 }
 
-template <int kWarps, int kMTiles>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kThreads)
 polyphase_tc_kernel(const uint8_t* __restrict__ xI,
                     const uint8_t* __restrict__ xQ, long long in_stride,
                     int vec, const float4* __restrict__ bfrag,
                     long long n_frames, float* __restrict__ yI,
                     float* __restrict__ yQ, long long out_stride) {
-  constexpr int kThreads = kWarps * 32;
-  constexpr int kRows = kWarps * kMTiles * 16;
-  constexpr int kFrames = kRows - (kTpp - 1);
   static_assert(kLdP * sizeof(float) <= kLdA, "P must fit over the A tile");
   extern __shared__ __align__(16) uint8_t s_a[];  // kRows * kLdA bytes
 
@@ -245,27 +248,6 @@ polyphase_tc_kernel(const uint8_t* __restrict__ xI,
   }
 }
 
-template <int kWarps, int kMTiles>
-int launch(const uint8_t* xI, const uint8_t* xQ, long long rows,
-           long long in_stride, int vec, const float4* bfrag,
-           long long n_frames, float* yI, float* yQ, long long out_stride,
-           cudaStream_t stream) {
-  constexpr int kRows = kWarps * kMTiles * 16;
-  constexpr long long kFrames = kRows - (kTpp - 1);
-  constexpr int smem = kRows * kLdA;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        polyphase_tc_kernel<kWarps, kMTiles>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  dim3 grid(static_cast<unsigned>((n_frames + kFrames - 1) / kFrames),
-            static_cast<unsigned>(rows));
-  polyphase_tc_kernel<kWarps, kMTiles><<<grid, kWarps * 32, smem, stream>>>(
-      xI, xQ, in_stride, vec, bfrag, n_frames, yI, yQ, out_stride);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
@@ -273,35 +255,22 @@ extern "C" {
 // xI/xQ: uint8 (rows, >= n_frames*80 + 560) planar input, row stride
 // in_stride bytes; vec = 1 only if both base pointers and in_stride are
 // multiples of 16. bfrag: float32 [20, 2, 32, 4], polyphase.py's
-// tc_fragments of the stage-1 taps. warps x m_tiles: 4 or 8 warps, 1, 2
-// or 4 tiles of 16 rows each. yI/yQ: float32 outputs, row stride
+// tc_fragments of the stage-1 taps. yI/yQ: float32 outputs, row stride
 // out_stride elements. Returns 0 on a good launch, else the CUDA error.
 int polyphase_tc_decimate(const void* xI, const void* xQ, long long rows,
                           long long in_stride, int vec, const void* bfrag,
-                          int warps, int m_tiles, long long n_frames,
-                          void* yI, void* yQ, long long out_stride,
-                          void* stream) {
+                          long long n_frames, void* yI, void* yQ,
+                          long long out_stride, void* stream) {
   if (rows <= 0 || n_frames <= 0) return 0;
   if (rows > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* i8 = static_cast<const uint8_t*>(xI);
-  const auto* q8 = static_cast<const uint8_t*>(xQ);
-  const auto* b = static_cast<const float4*>(bfrag);
-  auto* y_i = static_cast<float*>(yI);
-  auto* y_q = static_cast<float*>(yQ);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define POLYPHASE_TC_CASE(W, M)                                           \
-  if (warps == W && m_tiles == M) {                                       \
-    return launch<W, M>(i8, q8, rows, in_stride, vec, b, n_frames, y_i,   \
-                        y_q, out_stride, s);                              \
-  }
-  POLYPHASE_TC_CASE(4, 1)
-  POLYPHASE_TC_CASE(8, 1)
-  POLYPHASE_TC_CASE(4, 2)
-  POLYPHASE_TC_CASE(8, 2)
-  POLYPHASE_TC_CASE(4, 4)
-  POLYPHASE_TC_CASE(8, 4)
-#undef POLYPHASE_TC_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(static_cast<unsigned>((n_frames + kFrames - 1) / kFrames),
+            static_cast<unsigned>(rows));
+  polyphase_tc_kernel<<<grid, kThreads, kSmem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(xI), static_cast<const uint8_t*>(xQ),
+      in_stride, vec, static_cast<const float4*>(bfrag), n_frames,
+      static_cast<float*>(yI), static_cast<float*>(yQ), out_stride);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -11,8 +11,9 @@ fallback.
   front end. It computes the partial product below as a TF32 GEMM on
   the tensor cores, with the taps split into TF32 hi + lo parts on the
   host (``tf32_split``) so the result keeps float32 accuracy.
-- ``csrc/polyphase.cu``, the direct form: every other call (stage 2,
-  float32 input). One warp per output frame, lanes over the taps.
+- ``csrc/polyphase.cu``, the direct form: float32 planes through any
+  filter (stage 2, float32 stage-1 input). One warp per output frame,
+  lanes over the taps.
 
 Both replace ``rtlsdr_wsprd_tpu/frontend/pallas_decimate.py``
 ``decimate_stage1_pallas``; each source holds its own note on what
@@ -46,16 +47,13 @@ _vp, _ll, _ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # route -> (library name, source, C function, its argument types)
 _KERNELS = {
     "direct": ("polyphase", _CSRC / "polyphase.cu", "polyphase_decimate",
-               [_vp, _vp, _ci, _ll, _ll, _vp, _vp, _ci, _ci, _ll, _vp, _vp,
-                _ll, _vp]),
+               [_vp, _vp, _ll, _ll, _vp, _vp, _ci, _ci, _ll, _vp, _vp, _ll,
+                _vp]),
     "tc": ("polyphase_tc", _CSRC / "polyphase_tc.cu", "polyphase_tc_decimate",
-           [_vp, _vp, _ll, _ll, _ci, _vp, _ci, _ci, _ll, _vp, _vp, _ll,
-            _vp]),
+           [_vp, _vp, _ll, _ll, _ci, _vp, _ll, _vp, _vp, _ll, _vp]),
 }
-# the tensor-core kernel's filter (T, R), and its block: (warps, tiles
-# of 16 input rows per warp); a block yields 16 * warps * tiles - 7 frames
+# the tensor-core kernel's filter (T, R)
 TC_SHAPE = (640, 80)
-TC_TILE = (8, 2)
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -144,25 +142,17 @@ class FilterTensors(NamedTuple):
     gi: torch.Tensor
     htop: torch.Tensor     # partial-product matrices: the plain version's
     hbot: torch.Tensor
-    b_hi: torch.Tensor     # tf32_split([Htop; Hbot])
-    b_lo: torch.Tensor
-    b_frag: torch.Tensor   # tc_fragments: the tensor-core kernel's
-
-
-def _split_hi(htop, hbot):
-    return tf32_split(htop, hbot)[0]
-
-
-def _split_lo(htop, hbot):
-    return tf32_split(htop, hbot)[1]
+    # tc_fragments: the tensor-core kernel's; None for a filter it
+    # cannot take
+    b_frag: torch.Tensor | None
 
 
 class PolyphaseFilter:
     """One decimating filter: conv-ordered complex taps ``g`` (T,) and
     the decimation R. Holds the direct-form kernel's taps (gr, gi) and
-    the partial-product matrices (Htop, Hbot) as numpy tables; the
-    tensor-core kernel's split tables are derived from the live
-    Htop/Hbot on their way to the device."""
+    the partial-product matrices (Htop, Hbot) as numpy tables; for a
+    filter the tensor-core kernel takes, its fragment table is derived
+    from the live Htop/Hbot on its way to the device."""
 
     def __init__(self, g: np.ndarray, R: int):
         g = np.asarray(g)
@@ -178,13 +168,17 @@ class PolyphaseFilter:
     def tensors(self, device: torch.device) -> FilterTensors:
         """Every table of this filter on ``device``; after
         ``convert.load_state_dict`` the derived ones follow the new taps."""
-        hh = (self.htop, self.hbot)
+        frag = (derived_const(tc_fragments, (self.htop, self.hbot), device)
+                if self.tc_capable else None)
         return FilterTensors(
             const(self.gr, device), const(self.gi, device),
-            const(self.htop, device), const(self.hbot, device),
-            derived_const(_split_hi, hh, device),
-            derived_const(_split_lo, hh, device),
-            derived_const(tc_fragments, hh, device))
+            const(self.htop, device), const(self.hbot, device), frag)
+
+    @property
+    def tc_capable(self) -> bool:
+        """Whether the tensor-core kernel takes this filter: complex
+        taps of shape TC_SHAPE (stage 1)."""
+        return (self.T, self.R) == TC_SHAPE and bool(np.any(self.gi))
 
 
 def _center_f32(x: torch.Tensor) -> torch.Tensor:
@@ -217,10 +211,16 @@ def polyphase_plain(xI: torch.Tensor, xQ: torch.Tensor,
 
 def _route(device_type: str, dtype: torch.dtype,
            filt: PolyphaseFilter) -> str:
-    """The kernel a call takes: ``"tc"`` for uint8 planes on CUDA through
-    a complex-tap filter of TC_SHAPE (stage 1), else ``"direct"``."""
-    if (device_type == "cuda" and dtype == torch.uint8
-            and (filt.T, filt.R) == TC_SHAPE and bool(np.any(filt.gi))):
+    """The kernel a CUDA call takes: ``"tc"`` for uint8 planes through a
+    filter the tensor-core kernel takes (stage 1), ``"direct"`` for
+    float32 planes; uint8 through any other filter raises."""
+    if device_type != "cuda":
+        raise ValueError(f"no kernel for device type {device_type!r}")
+    if dtype == torch.uint8:
+        if not filt.tc_capable:
+            raise ValueError(
+                f"uint8 planes need the stage-1 filter (T, R) = {TC_SHAPE} "
+                f"with complex taps, got ({filt.T}, {filt.R})")
         return "tc"
     return "direct"
 
@@ -241,6 +241,7 @@ def polyphase_decimate(xI: torch.Tensor, xQ: torch.Tensor,
     if xI.dtype != xQ.dtype or xI.dtype not in (torch.uint8, torch.float32):
         raise TypeError(f"need uint8 or float32 planes, got "
                         f"{xI.dtype}/{xQ.dtype}")
+    route = _route(xI.device.type, xI.dtype, filt)
     if xI.shape != xQ.shape or xI.dim() not in (1, 2):
         raise ValueError(f"bad plane shapes {tuple(xI.shape)}, "
                          f"{tuple(xQ.shape)}")
@@ -259,7 +260,6 @@ def polyphase_decimate(xI: torch.Tensor, xQ: torch.Tensor,
                       device=xI.device)
     if n_frames <= 0 or rows == 0:
         return (out[0, 0], out[1, 0]) if single else (out[0], out[1])
-    route = _route(xI.device.type, xI.dtype, filt)
     tabs = filt.tensors(xI.device)
     lib = _load_kernel(route)
     stream = torch.cuda.current_stream(xI.device).cuda_stream
@@ -268,14 +268,13 @@ def polyphase_decimate(xI: torch.Tensor, xQ: torch.Tensor,
         vec = int((rI.data_ptr() | rQ.data_ptr() | rI.stride(0)) % 16 == 0)
         rc = lib.polyphase_tc_decimate(
             rI.data_ptr(), rQ.data_ptr(), rows, rI.stride(0), vec,
-            tabs.b_frag.data_ptr(), *TC_TILE, n_frames,
-            out[0].data_ptr(), out[1].data_ptr(), n_frames, stream)
+            tabs.b_frag.data_ptr(), n_frames, out[0].data_ptr(),
+            out[1].data_ptr(), n_frames, stream)
     else:
         rc = lib.polyphase_decimate(
-            rI.data_ptr(), rQ.data_ptr(), int(xI.dtype == torch.uint8), rows,
-            rI.stride(0), tabs.gr.data_ptr(), tabs.gi.data_ptr(), filt.T,
-            filt.R, n_frames, out[0].data_ptr(), out[1].data_ptr(), n_frames,
-            stream)
+            rI.data_ptr(), rQ.data_ptr(), rows, rI.stride(0),
+            tabs.gr.data_ptr(), tabs.gi.data_ptr(), filt.T, filt.R, n_frames,
+            out[0].data_ptr(), out[1].data_ptr(), n_frames, stream)
     if rc != 0:
         raise RuntimeError(f"polyphase {route} kernel launch failed: CUDA "
                            f"error {rc}")

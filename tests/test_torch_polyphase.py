@@ -16,14 +16,18 @@ from rtlsdr_wsprd_tpu.frontend.filters import R1, STAGE1_TAPS
 from rtlsdr_wsprd_tpu_torch import convert
 from rtlsdr_wsprd_tpu_torch.frontend import decimate as pdec
 from rtlsdr_wsprd_tpu_torch.frontend.polyphase import (
+    PolyphaseFilter,
     _route,
     polyphase_plain,
     tf32_round,
+    tf32_split,
 )
 
 from torch_parity import CPU
 
 TPP = STAGE1_TAPS // R1
+# polyphase_tc.cu's block: 8 warps x 2 tiles of 16 input rows
+KERNEL_TILE_ROWS = 8 * 2 * 16
 
 
 def _low13(a: np.ndarray) -> np.ndarray:
@@ -33,8 +37,7 @@ def _low13(a: np.ndarray) -> np.ndarray:
 def test_split_tables_are_tf32_and_sum_to_the_taps():
     """B_hi and B_lo have their low 13 mantissa bits zero (exact TF32
     operands) and B_hi + B_lo equals [Htop; Hbot] within 2^-22 |B|."""
-    t = pdec.STAGE1.tensors(CPU)
-    hi, lo = t.b_hi.numpy(), t.b_lo.numpy()
+    hi, lo = tf32_split(pdec.STAGE1.htop, pdec.STAGE1.hbot)
     b = np.concatenate([pdec.STAGE1.htop, pdec.STAGE1.hbot])
     assert hi.shape == lo.shape == b.shape == (2 * R1, 2 * TPP)
     assert not _low13(hi).any() and not _low13(lo).any()
@@ -103,11 +106,12 @@ def _diag(P, n):
                      for comp in (0, 1)])
 
 
-@pytest.mark.parametrize("tile_rows", [128, 64])
+@pytest.mark.parametrize("tile_rows", [KERNEL_TILE_ROWS, 128, 64])
 @pytest.mark.parametrize("n", [1, 129, 700])
 def test_tc_arithmetic_matches_plain_and_xla(n, tile_rows):
-    """The kernel's split-TF32 arithmetic and tile walk on uint8 C=3:
-    within 1e-4 of the plain version (float32 sums in another order)
+    """The kernel's split-TF32 arithmetic and tile walk on uint8 C=3
+    (at n = 700 the kernel's own 256-row tiles cross two block edges and
+    end in a ragged tile): within 1e-4 of the plain version (float32 sums in another order)
     and 1e-3 of the JAX package's XLA path (its tolerance for uint8
     input); its error against a float64 reference is at least 100x
     smaller than that of one product with TF32-rounded taps."""
@@ -136,32 +140,47 @@ def test_tc_arithmetic_matches_plain_and_xla(n, tile_rows):
     (torch.uint8, "STAGE1", "tc"),
     (torch.float32, "STAGE1", "direct"),
     (torch.float32, "STAGE2", "direct"),
-    (torch.uint8, "STAGE2", "direct"),
 ])
 def test_route_picks_the_kernel(dtype, stage, route):
-    """uint8 stage-1 calls on CUDA go to the tensor-core kernel, every
-    other CUDA call to the direct form; no card or launch needed."""
+    """uint8 stage-1 calls on CUDA go to the tensor-core kernel, float32
+    calls to the direct form; no card or launch needed."""
     assert _route("cuda", dtype, getattr(pdec, stage)) == route
 
 
+# a 640/80 filter with real taps: the stage-1 shape, not its taps
+_REAL_640 = PolyphaseFilter(np.hanning(STAGE1_TAPS).astype(np.complex64), R1)
+
+
+@pytest.mark.parametrize("device_type, filt", [
+    ("cuda", pdec.STAGE2),
+    ("cuda", _REAL_640),
+    ("cpu", pdec.STAGE1),
+], ids=["stage2", "real-taps-640", "cpu"])
+def test_route_refuses_what_no_kernel_takes(device_type, filt):
+    """uint8 planes through a filter other than stage 1 have no kernel
+    (the direct form takes float32 only), and no kernel runs off CUDA:
+    _route raises rather than pick one."""
+    with pytest.raises(ValueError):
+        _route(device_type, torch.uint8, filt)
+
+
 def test_split_tables_follow_load_state_dict():
-    """A bumped stage-1 Htop loaded through convert changes the split
-    tables STAGE1.tensors() returns; restoring it restores them."""
-    t0 = pdec.STAGE1.tensors(CPU)
-    hi0, lo0, f0 = (x.clone() for x in (t0.b_hi, t0.b_lo, t0.b_frag))
+    """A bumped stage-1 Htop loaded through convert changes the
+    fragment table STAGE1.tensors() returns to the split of the new taps
+    (read back by the kernel's index); restoring it restores the table."""
+    f0 = pdec.STAGE1.tensors(CPU).b_frag.clone()
     saved = convert.state_dict()
     try:
         bumped = dict(saved)
         bumped["frontend.stage1.htop"] = saved["frontend.stage1.htop"] * 3
         convert.load_state_dict(bumped)
-        t1 = pdec.STAGE1.tensors(CPU)
-        assert not torch.equal(t1.b_hi, hi0)
-        assert not torch.equal(t1.b_frag, f0)
-        np.testing.assert_array_equal(
-            t1.b_hi[:R1].numpy(),
-            tf32_round(saved["frontend.stage1.htop"] * 3))
+        f1 = pdec.STAGE1.tensors(CPU).b_frag
+        assert not torch.equal(f1, f0)
+        hi1, lo1 = _b_from_fragments(f1.numpy())
+        want_hi, want_lo = tf32_split(saved["frontend.stage1.htop"] * 3,
+                                      saved["frontend.stage1.hbot"])
+        np.testing.assert_array_equal(hi1, want_hi)
+        np.testing.assert_array_equal(lo1, want_lo)
     finally:
         convert.load_state_dict(saved)
-    t2 = pdec.STAGE1.tensors(CPU)
-    assert torch.equal(t2.b_hi, hi0) and torch.equal(t2.b_lo, lo0)
-    assert torch.equal(t2.b_frag, f0)
+    assert torch.equal(pdec.STAGE1.tensors(CPU).b_frag, f0)
