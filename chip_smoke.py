@@ -7,7 +7,7 @@ Phases, in order; any failure exits non-zero before the last line:
 1. env      torch/CUDA versions, the card's name and power limit, TF32 off.
 2. build    the two polyphase CUDA kernels (nvcc: polyphase_tc.cu, the
             tensor-core stage-1 kernel for uint8 input, and polyphase.cu,
-            the direct form for the rest) and the host Fano library
+            the direct form for float32 input) and the host Fano library
             (g++), built at the same time from this checkout.
 3. frontend the main path: a 120 s synthetic raw 2.4 Msps uint8 capture
             streamed in 10 s chunks through BatchedStreamingDecimator (8
@@ -16,12 +16,19 @@ Phases, in order; any failure exits non-zero before the last line:
             this phase (every uint8 stage-1 call on polyphase_tc, every
             stage-2 call on the direct form), and the shape of every
             launch is recorded.
+   single   the same capture through the single-channel
+            StreamingDecimator, which centres the bytes on the host, so
+            both of its stages run float32 on the direct form: its launch
+            counts are read around this phase (every call on the direct
+            form, none on polyphase_tc), the shape of every launch is
+            recorded, and its output must equal the batched lane 0
+            within 2e-4 of the output scale.
 4. kernel   each kernel against the plain PyTorch version on the card at
-            every shape the main path launched it with, plus uint8
-            stage-1 calls of 1, 129 and 8,000 frames, one whose rows are
-            not 16-byte aligned, a float32 stage-1 call of 8,000 frames
-            (the direct form) and a 100-frame stage-2 call; with the
-            device times of the kernel, the plain version, one torch
+            every shape either path launched it with, plus uint8 stage-1
+            calls of 1, 129 and 8,000 frames, a float32 stage-1 call of
+            8,000 frames, a 100-frame stage-2 call, and calls whose rows
+            are not 16-byte aligned (one per stage and input type); with
+            the device times of the kernel, the plain version, one torch
             conv1d call (a yardstick the port never calls) and the card's
             bound for the same work.
 5. decode   512 mixed windows through decode_channels (full jitter
@@ -37,6 +44,7 @@ non-zero without one. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -210,10 +218,10 @@ def _planes(rng, dt, C, L, offset=0):
     return h[0], h[1]
 
 
-def phase_kernel(dev, name, main_shapes):
-    """Each kernel vs plain at every shape of ``main_shapes`` (the main
-    path's launches, from phase_frontend) and at the extra calls the
-    module docstring lists; returns one row per shape."""
+def phase_kernel(dev, name, paths):
+    """Each kernel vs plain at every shape of ``paths`` (path name ->
+    launches by shape, from phase_frontend and phase_single) and at the
+    extra calls the module docstring lists; returns one row per shape."""
     from rtlsdr_wsprd_tpu_torch.frontend.decimate import STAGE1, STAGE2
     from rtlsdr_wsprd_tpu_torch.frontend.polyphase import (
         _route,
@@ -229,23 +237,30 @@ def phase_kernel(dev, name, main_shapes):
     def s1(n):
         return n * STAGE1.R + STAGE1.T - STAGE1.R
 
-    # stage, input dtype, C, L, frames, launches on the main path, offset
-    cases = sorted(((st, dt, C, L, n, k, 0) for (st, dt, C, L, n), k
-                    in main_shapes.items()), key=lambda c: (c[0], -c[4]))
-    cases += [("stage1", "uint8", 8, s1(n), n, 0, 0) for n in (8000, 129, 1)]
-    cases += [("stage1", "uint8", 8, s1(8000), 8000, 0, 1),
-              ("stage1", "float32", 8, s1(8000), 8000, 0, 0),
-              ("stage2", "float32", 8, 100 * STAGE2.R + STAGE2.T - STAGE2.R,
-               100, 0, 0)]
+    def s2(n):
+        return n * STAGE2.R + STAGE2.T - STAGE2.R
+
+    # path, stage, input dtype, C, L, frames, launches on that path, offset
+    cases = []
+    for path, shapes in paths.items():
+        cases += sorted(((path, st, dt, C, L, n, k, 0) for (st, dt, C, L, n), k
+                         in shapes.items()), key=lambda c: (c[1], -c[5]))
+    cases += [("extra", "stage1", "uint8", 8, s1(n), n, 0, 0)
+              for n in (8000, 129, 1)]
+    cases += [("extra", "stage1", "uint8", 8, s1(8000), 8000, 0, 1),
+              ("extra", "stage1", "float32", 8, s1(8000), 8000, 0, 0),
+              ("extra", "stage1", "float32", 8, s1(8000), 8000, 0, 1),
+              ("extra", "stage2", "float32", 8, s2(100), 100, 0, 0),
+              ("extra", "stage2", "float32", 8, s2(3700), 3700, 0, 1)]
     atol = 1e-3
-    for stage, dt, C, L, n, launched, offset in cases:
+    for path, stage, dt, C, L, n, launched, offset in cases:
         filt = filters[stage]
         route = _route("cuda", getattr(torch, dt), filt)
         # real taps (stage 2) need 2 FMA per tap and frame, complex 4
         flop_tap = 8 if np.any(filt.gi) else 4
         label = (f"{stage} {dt} C={C} x {n} frames, L={L}"
                  f"{f', rows at a {offset}-element offset' if offset else ''}"
-                 f" ({launched} launches on the main path)")
+                 f" ({launched} launches on the {path} path)")
         hI, hQ = _planes(rng, dt, C, L, offset)
         xI = torch.from_numpy(hI).to(dev)[:, offset:]
         xQ = torch.from_numpy(hQ).to(dev)[:, offset:]
@@ -282,7 +297,8 @@ def phase_kernel(dev, name, main_shapes):
         fp32_core_ms = flops / peak_flops * 1e3
         # the tensor-core kernel does its work as two TF32 products
         t_ops = 2 * flops / peak_tf32 * 1e3 if route == "tc" else fp32_core_ms
-        row = dict(shape=label, route=route, stage=stage, dtype=dt, C=C,
+        row = dict(shape=label, path=path, route=route, stage=stage,
+                   dtype=dt, C=C,
                    L=L, frames=n, row_offset=offset, launches=launched,
                    max_abs_err=err, atol=atol, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, library_max_abs_err=lib_err,
@@ -301,18 +317,36 @@ def phase_kernel(dev, name, main_shapes):
     return rows
 
 
-def phase_frontend(dev, C: int = 8):
-    """The main path: raw 120 s capture -> C-lane streaming front end ->
-    decode of lane 0. Returns each kernel's launches ({route: count})
-    and the count of launches per (stage, input dtype, C, L, frames)."""
-    from rtlsdr_wsprd_tpu_torch.config import SIGNAL_SAMPLES, DecoderOptions
+@contextlib.contextmanager
+def noted_calls():
+    """Set every kernel's launch count to 0 and note the (stage, input
+    dtype, C, L, frames) of every polyphase call the front end makes
+    inside the block, counted by shape (the wrapper itself, which counts
+    the launches, runs unchanged underneath)."""
     from rtlsdr_wsprd_tpu_torch.frontend import decimate
-    from rtlsdr_wsprd_tpu_torch.frontend.decimate import (
-        BatchedStreamingDecimator,
-    )
     from rtlsdr_wsprd_tpu_torch.frontend.polyphase import polyphase_decimate
-    from rtlsdr_wsprd_tpu_torch.parallel.multichannel import decode_channels
-    from rtlsdr_wsprd_tpu_torch.runtime.iqio import normalize_minus3db
+
+    shapes: dict[tuple, int] = {}
+
+    def noting(xI, xQ, filt, n_frames):
+        key = ("stage1" if filt is decimate.STAGE1 else "stage2",
+               str(xI.dtype).removeprefix("torch."),
+               *(xI.shape if xI.dim() == 2 else (1, *xI.shape)), n_frames)
+        shapes[key] = shapes.get(key, 0) + 1
+        return polyphase_decimate(xI, xQ, filt, n_frames)
+
+    decimate.polyphase_decimate = noting
+    for route in polyphase_decimate.launches:
+        polyphase_decimate.launches[route] = 0
+    try:
+        yield shapes
+    finally:
+        decimate.polyphase_decimate = polyphase_decimate
+
+
+def synth_capture():
+    """The 120 s raw 2.4 Msps capture of one K1JT FN20 20 signal, as
+    10 s (I, Q) uint8 chunks."""
     from rtlsdr_wsprd_tpu_torch.runtime.synth import synth_raw_2400k
     from rtlsdr_wsprd_tpu_torch.utils.channel import get_wspr_channel_symbols
     from rtlsdr_wsprd_tpu_torch.utils.hashtable import WsprHashTable
@@ -324,21 +358,23 @@ def phase_frontend(dev, C: int = 8):
                                   seed=3))
     log(f"[frontend] synthesized 120 s raw capture in "
         f"{time.perf_counter() - t0:.1f} s")
+    return chunks
 
-    # note the shape of every call the front end makes (the wrapper
-    # itself, which counts the launches, runs unchanged underneath)
-    shapes: dict[tuple, int] = {}
 
-    def noting(xI, xQ, filt, n_frames):
-        key = ("stage1" if filt is decimate.STAGE1 else "stage2",
-               str(xI.dtype).removeprefix("torch."), *xI.shape, n_frames)
-        shapes[key] = shapes.get(key, 0) + 1
-        return polyphase_decimate(xI, xQ, filt, n_frames)
+def phase_frontend(dev, chunks, C: int = 8):
+    """The main path: raw 120 s capture -> C-lane streaming front end ->
+    decode of lane 0. Returns each kernel's launches ({route: count}),
+    the count of launches per (stage, input dtype, C, L, frames) and
+    lane 0's output planes."""
+    from rtlsdr_wsprd_tpu_torch.config import SIGNAL_SAMPLES, DecoderOptions
+    from rtlsdr_wsprd_tpu_torch.frontend.decimate import (
+        BatchedStreamingDecimator,
+    )
+    from rtlsdr_wsprd_tpu_torch.frontend.polyphase import polyphase_decimate
+    from rtlsdr_wsprd_tpu_torch.parallel.multichannel import decode_channels
+    from rtlsdr_wsprd_tpu_torch.runtime.iqio import normalize_minus3db
 
-    decimate.polyphase_decimate = noting
-    for route in polyphase_decimate.launches:
-        polyphase_decimate.launches[route] = 0
-    try:
+    with noted_calls() as shapes:
         t0 = time.perf_counter()
         fe = BatchedStreamingDecimator(C, device=dev)
         outs = [fe.push(np.broadcast_to(ri, (C, ri.size)),
@@ -347,8 +383,7 @@ def phase_frontend(dev, C: int = 8):
         outs.append(fe.flush())
         torch.cuda.synchronize()
         fe_s = time.perf_counter() - t0
-    finally:
-        decimate.polyphase_decimate = polyphase_decimate
+    launches = dict(polyphase_decimate.launches)
     bI = np.concatenate([o[0] for o in outs], axis=1)
     bQ = np.concatenate([o[1] for o in outs], axis=1)
     if not all(np.array_equal(bI[c], bI[0]) and np.array_equal(bQ[c], bQ[0])
@@ -364,7 +399,6 @@ def phase_frontend(dev, C: int = 8):
     spots = decode_channels(i[None], q[None], DecoderOptions(),
                             device_batch=1, device=dev)[0]
     torch.cuda.synchronize()
-    launches = dict(polyphase_decimate.launches)
     log(f"[frontend] {C} lanes x 120 s raw -> {bI.shape[1]} samples at "
         f"375 sps in {fe_s:.2f} s ({C * 120 / fe_s:.1f} channel-s per s, "
         f"host synthesis excluded); polyphase launches by kernel "
@@ -389,6 +423,46 @@ def phase_frontend(dev, C: int = 8):
         fail(f"front-end calls {shapes} do not match launches {launches}: "
              f"want {want}")
     log(f"[frontend] launches by (stage, dtype, C, L, frames): "
+        f"{sorted(shapes.items())}")
+    return launches, shapes, bI[0], bQ[0]
+
+
+def phase_single(dev, chunks, refI, refQ):
+    """The single-channel front end: the same capture through
+    StreamingDecimator, which centres the bytes on the host, so both of
+    its stages are float32 calls on the direct form. Its output must
+    equal the batched front end's lane 0 (refI, refQ) within 2e-4 of the
+    output scale. Returns its launches and launches by shape."""
+    from rtlsdr_wsprd_tpu_torch.frontend.decimate import StreamingDecimator
+    from rtlsdr_wsprd_tpu_torch.frontend.polyphase import polyphase_decimate
+
+    with noted_calls() as shapes:
+        t0 = time.perf_counter()
+        fe = StreamingDecimator(device=dev)
+        outs = [fe.push(ri, rq) for ri, rq in chunks]
+        outs.append(fe.flush())
+        torch.cuda.synchronize()
+        fe_s = time.perf_counter() - t0
+    launches = dict(polyphase_decimate.launches)
+    sI = np.concatenate([o[0] for o in outs])
+    sQ = np.concatenate([o[1] for o in outs])
+    if sI.shape != refI.shape or sQ.shape != refQ.shape:
+        fail(f"single-lane output {sI.shape} != batched lane 0 {refI.shape}")
+    scale = float(max(np.abs(refI).max(), np.abs(refQ).max()))
+    err = float(max(np.abs(sI - refI).max(), np.abs(sQ - refQ).max()))
+    log(f"[single] 1 lane x 120 s raw -> {sI.shape[0]} samples at 375 sps "
+        f"in {fe_s:.2f} s ({120 / fe_s:.1f} channel-s per s); max |single - "
+        f"batched lane 0| {err:.3g} (scale {scale:.4g}, tolerance "
+        f"{2e-4 * scale:.3g}); polyphase launches by kernel {launches}")
+    if not err <= 2e-4 * scale:
+        fail(f"single-lane output differs from batched lane 0 by {err}")
+    # every call, both stages, float32 on the direct form
+    want = {"tc": 0, "direct": sum(shapes.values())}
+    if (launches != want or not want["direct"]
+            or any(k[1] != "float32" for k in shapes)):
+        fail(f"single-lane calls {shapes} do not match launches {launches}: "
+             f"want {want}")
+    log(f"[single] launches by (stage, dtype, C, L, frames): "
         f"{sorted(shapes.items())}")
     return launches, shapes
 
@@ -484,23 +558,29 @@ def main() -> None:
     t_start = time.perf_counter()
     dev, name, card = phase_env()
     phase_build()
-    launches, shapes = phase_frontend(dev)
-    rows = phase_kernel(dev, name, shapes)
+    chunks = synth_capture()
+    launches, shapes, refI, refQ = phase_frontend(dev, chunks)
+    launches1, shapes1 = phase_single(dev, chunks, refI, refQ)
+    del chunks
+    rows = phase_kernel(dev, name, {"batched": shapes, "single": shapes1})
     phase_decode(dev, card)
     kernels = []
     for kname, route, src in (
             ("polyphase_tc", "tc", "polyphase_tc.cu"),
             ("polyphase_decimate", "direct", "polyphase.cu")):
         mine = [r for r in rows if r["route"] == route]
-        # headline: the shape the main path launched this kernel with
-        # most (the 10 s push for tc, its stage-2 call for direct)
-        main_row = max(mine, key=lambda r: (r["launches"], r["frames"]))
+        # headline: the shape the batched front end launched this kernel
+        # with most (the 10 s push for tc, its stage-2 call for direct)
+        main_row = max((r for r in mine if r["path"] == "batched"),
+                       key=lambda r: (r["launches"], r["frames"]))
         kernels.append({
             "name": kname,
             "route": "cuda",
             "source": f"rtlsdr_wsprd_tpu_torch/frontend/csrc/{src}",
             "replaces": "rtlsdr_wsprd_tpu/frontend/pallas_decimate.py:78",
-            "launches": launches[route],
+            "launches": launches[route] + launches1[route],
+            "launches_by_path": {"batched": launches[route],
+                                 "single": launches1[route]},
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],

@@ -1,95 +1,224 @@
-// Polyphase complex FIR decimator for Hopper (sm_90a), direct form.
+// Polyphase complex FIR decimator for Hopper (sm_90a): float32 planes
+// through a shared-memory slab and per-phase register tiles.
 //
-// Replaces rtlsdr_wsprd_tpu/frontend/pallas_decimate.py:
-// decimate_stage1_pallas (the TPU kernel) beside polyphase_tc.cu, which
-// takes the raw front end's uint8 stage-1 calls. This one takes every
-// float32 call, through one code path:
-//   stage 1: R = 80, T = 640 complex taps (fs/4 mixer folded in);
-//   stage 2: R = 80, T = 2400 real taps (gi = 0).
+// Replaces rtlsdr_wsprd_tpu/frontend/pallas_decimate.py:78
+// (decimate_stage1_pallas, the TPU kernel) for every float32 call, beside
+// polyphase_tc.cu, which takes the raw front end's uint8 stage-1 calls.
+// Two instantiations of one kernel, fixed here:
+//   stage 1: R = 80, T = 640 = 8 x 80 complex taps (fs/4 mixer folded in);
+//   stage 2: R = 80, T = 2400 = 30 x 80 real taps (gi = 0).
 //
 // For every row c and output frame m, with conv-ordered taps g = gr + i gi:
 //   yI[c, m] = sum_k gr[k] xI[c, R m + k] - gi[k] xQ[c, R m + k]
 //   yQ[c, m] = sum_k gi[k] xI[c, R m + k] + gr[k] xQ[c, R m + k]
+// With k = t R + r (phase r < R, tap block t < tpp = T / R) and slab row
+// s = m + t, x[c, R m + k] = x[c, R s + r], so
+//   y[m] = sum_r p_r[m],   p_r[m] = sum_t g[t R + r] x[c, R (m + t) + r]:
+// each phase r is a tpp-tap convolution of the samples of that phase.
 //
-// Bound on an H100: stage 1 costs 640 taps x 4 FMA = 5,120 FLOP per output
-// frame and reads 640 B of float32 I/Q, 8 FLOP per input byte; stage 2
-// costs 2,400 x 2 FMA = 9,600 FLOP per frame and reads 640 B, 15 FLOP per
-// byte. Both sit under the card's ~20 FLOP/B fp32 ridge (67 TFLOP/s over
-// 3.35 TB/s on the SXM part), so HBM bounds them, not the FP32 cores.
+// Bound on an H100 SXM. The main path's stage-2 call (C = 8 x 3,700 frames)
+// reads 19.1 MB of float32 I/Q and writes 0.24 MB: 0.0058 ms at 3.35 TB/s.
+// Its real taps cost 2 FMA per tap and frame, 284 MFLOP, 0.0042 ms at
+// 67 TFLOP/s. A float32 stage-1 call of C = 8 x 8,000 frames reads 41.0 MB
+// (0.0124 ms) for 0.0049 ms of complex FMAs (4 a tap). So bytes bound both,
+// and the FP32 cores suffice: a kernel that reads each input sample from
+// the slab a few times, not T / R times, can reach the byte floor.
 //
-// Design against that bound. The Pallas kernel im2cols each 512-frame
-// block into VMEM, which replays every input sample tpp = 8 times into
-// the matmul operand; here nothing is replicated. One warp computes one
-// output frame: the 32 lanes split the T taps (lane l takes taps
-// l, l + 32, ...), so each load instruction of the warp reads 32
-// neighbouring samples (coalesced), every lane spends its time on FMAs,
-// and a warp-shuffle reduction ends the frame. The taps sit in shared
-// memory (5 KB complex for stage 1, 19 KB for stage 2), read
-// conflict-free because lanes read neighbouring words. Neighbouring
-// frames overlap by T - R samples; those re-reads hit L1/L2, not HBM.
-// A block of 8 warps walks kFramesPerBlock frames of one row, so the
-// taps are staged once per block. Speed beyond this simple form
-// (register tiling several frames per warp, vector loads) is later work.
+// Design, against the five costs of the direct form it replaces (one warp
+// per output frame, lanes over the taps):
+// 1. Every sample was loaded T / R times through L1 (30 in stage 2, 8 in
+//    stage 1), since neighbouring frames overlap by T - R samples. Here a
+//    block owns kFrames output frames of one row and copies their slab,
+//    (kFrames + tpp - 1) x R samples of each plane, into shared memory
+//    once: 16-byte cp.async copies where both planes' rows start 16-byte
+//    aligned (the main path's do: torch.cat output, row stride 80 n + 2320
+//    floats), one float a thread otherwise. Only the tpp - 1 halo rows are
+//    read again, by the next block, mostly from L2.
+// 2. Loads set the pace (2 global and 2 shared loads per 4 FMAs). Here
+//    thread (r, grp) owns phase r and a group of kGroup consecutive frames.
+//    Its tpp taps of phase r sit in registers; it walks the kGroup + tpp - 1
+//    slab samples of its phase in order, and each sample feeds up to tpp
+//    FMAs into a register tile of kGroup outputs per plane: one shared load
+//    feeds about ten FMAs. Neighbouring lanes take neighbouring phases, so
+//    a warp reads neighbouring words. Every kGroup slab rows are followed by
+//    16 floats of padding: a warp that spans two frame groups (R = 80 is not
+//    a multiple of 32) then reads two disjoint half-bank sets.
+// 3. Stage 2 ran the complex body on real taps. The real instantiation runs
+//    2 FMAs and holds 1 tap per tap block; the complex one 4 and 2.
+// 4. A 5-step shuffle reduction per frame and plane. Here the cross-phase
+//    sum writes the R partials of every frame and plane to shared memory
+//    (over the slab) and one thread per frame and plane adds them, r = 0 to
+//    R - 1: R adds a frame, against tpp R FMAs.
+// 5. 128-frame blocks left small calls on a few SMs. kFrames is chosen per
+//    instantiation by timing (PERF.md keeps the timings): short blocks put
+//    more of them in flight at C = 8 x 99 and C = 1 frames, at the price of
+//    a larger halo share, (tpp - 1) / kFrames of the slab.
+// Ragged edge: slab rows past the row's last needed input row are zero,
+// and frames past n are not written.
 //
 // Plain C interface, loaded with ctypes. The function launches on the
-// caller's stream, does not synchronise and allocates nothing; it
-// returns cudaGetLastError() so a refused launch is reported.
+// caller's stream, does not synchronise and allocates nothing; it returns
+// cudaGetLastError() so a refused launch is reported.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kFramesPerBlock = 128;
+constexpr int kR = 80;     // decimation: samples per slab row
+constexpr int kPad = 16;   // floats of padding after every kGroup slab rows
 
-__global__ void __launch_bounds__(kThreads)
+// the two instantiations: taps per phase, output frames per block and
+// frames per thread (chosen by timing on the card, PERF.md)
+constexpr int kStage1Tpp = 8;
+constexpr int kStage1Frames = 64;
+constexpr int kStage1Group = 8;
+constexpr int kStage2Tpp = 30;
+constexpr int kStage2Frames = 64;
+constexpr int kStage2Group = 16;
+
+template <int kTpp, bool kComplex, int kFrames, int kGroup>
+struct Block {
+  static_assert(kFrames % kGroup == 0 && kFrames % 32 == 0, "block shape");
+  static constexpr int kThreads = kR * (kFrames / kGroup);
+  static_assert(kThreads <= 1024, "too many threads");
+  static constexpr int kRows = kFrames + kTpp - 1;  // slab rows
+  // one plane's slab in floats, padding included (a multiple of 4)
+  static constexpr int kPlane =
+      kRows * kR + kPad * ((kRows + kGroup - 1) / kGroup);
+  static constexpr int kLdP = kFrames + 1;  // partials row, floats
+  static_assert(2 * kR * kLdP <= 2 * kPlane, "partials fit over the slab");
+  static constexpr size_t kSmem = 2 * kPlane * sizeof(float);
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+template <int kTpp, bool kComplex, int kFrames, int kGroup>
+__global__ void __launch_bounds__(
+    (Block<kTpp, kComplex, kFrames, kGroup>::kThreads))
 polyphase_kernel(const float* __restrict__ xI, const float* __restrict__ xQ,
-                 long long in_stride, const float* __restrict__ gr,
-                 const float* __restrict__ gi, int T, int R,
-                 long long n_frames, float* __restrict__ yI,
-                 float* __restrict__ yQ, long long out_stride) {
-  extern __shared__ float s_taps[];  // [0, T): gr, [T, 2T): gi
-  for (int k = threadIdx.x; k < T; k += kThreads) {
-    s_taps[k] = gr[k];
-    s_taps[T + k] = gi[k];
+                 long long in_stride, int vec, const float* __restrict__ gr,
+                 const float* __restrict__ gi, long long n_frames,
+                 float* __restrict__ yI, float* __restrict__ yQ,
+                 long long out_stride) {
+  using B = Block<kTpp, kComplex, kFrames, kGroup>;
+  extern __shared__ __align__(16) float s_slab[];  // [2][kPlane]
+
+  const int tid = threadIdx.x;
+  const long long c = blockIdx.y;
+  const long long m0 = static_cast<long long>(blockIdx.x) * kFrames;
+  // the row's slab rows are 0 .. n_frames + tpp - 2
+  const long long left = n_frames + (kTpp - 1) - m0;
+  const int rows_valid = left < B::kRows ? static_cast<int>(left) : B::kRows;
+  const float* pI = xI + c * in_stride + m0 * kR;
+  const float* pQ = xQ + c * in_stride + m0 * kR;
+
+  // 1. the slab of both planes, once; element (s, r) of a plane at
+  // s R + r + kPad (s / kGroup), rows past rows_valid zero
+  if (vec) {
+    constexpr int kChunks = B::kRows * kR / 4;  // 16-byte chunks a plane
+    for (int q = tid; q < 2 * kChunks; q += B::kThreads) {
+      const int plane = q >= kChunks;
+      const int e = 4 * (q - plane * kChunks);
+      const int s = e / kR;
+      float* dst = s_slab + plane * B::kPlane + e + kPad * (s / kGroup);
+      if (s < rows_valid) {
+        cp_async16(dst, (plane ? pQ : pI) + e);
+      } else {
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  } else {
+    for (int e = tid; e < B::kRows * kR; e += B::kThreads) {
+      const int s = e / kR;
+      const int at = e + kPad * (s / kGroup);
+      const bool in = s < rows_valid;
+      s_slab[at] = in ? pI[e] : 0.0f;
+      s_slab[B::kPlane + at] = in ? pQ[e] : 0.0f;
+    }
   }
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long c = blockIdx.y;
-  const float* rowI = xI + c * in_stride;
-  const float* rowQ = xQ + c * in_stride;
-  const long long m0 = static_cast<long long>(blockIdx.x) * kFramesPerBlock;
-
-  for (int f = warp; f < kFramesPerBlock; f += kWarps) {
-    const long long m = m0 + f;
-    if (m >= n_frames) break;
-    const float* pI = rowI + m * R;
-    const float* pQ = rowQ + m * R;
-    float aI = 0.0f;
-    float aQ = 0.0f;
-    for (int k = lane; k < T; k += 32) {
-      const float xi = pI[k];
-      const float xq = pQ[k];
-      const float r = s_taps[k];
-      const float im = s_taps[T + k];
-      aI = fmaf(r, xi, aI);
-      aI = fmaf(-im, xq, aI);
-      aQ = fmaf(im, xi, aQ);
-      aQ = fmaf(r, xq, aQ);
-    }
+  // 2. thread (r, grp): phase r's taps in registers, kGroup frames of
+  // partials per plane
+  const int r = tid % kR;
+  const int grp = tid / kR;
+  float tr[kTpp];
+  float ti[kComplex ? kTpp : 1];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      aI += __shfl_down_sync(0xffffffffu, aI, off);
-      aQ += __shfl_down_sync(0xffffffffu, aQ, off);
-    }
-    if (lane == 0) {
-      yI[c * out_stride + m] = aI;
-      yQ[c * out_stride + m] = aQ;
+  for (int t = 0; t < kTpp; ++t) {
+    tr[t] = __ldg(gr + t * kR + r);
+    if constexpr (kComplex) ti[t] = __ldg(gi + t * kR + r);
+  }
+  const float* sI = s_slab + grp * (kGroup * kR + kPad) + r;
+  const float* sQ = sI + B::kPlane;
+  float aI[kGroup] = {};
+  float aQ[kGroup] = {};
+#pragma unroll
+  for (int j = 0; j < kGroup + kTpp - 1; ++j) {
+    // slab row grp kGroup + j
+    const int off = j * kR + kPad * (j / kGroup);
+    const float xi = sI[off];
+    const float xq = sQ[off];
+#pragma unroll
+    for (int t = 0; t < kTpp; ++t) {
+      const int i = j - t;  // the frame of the group this tap block feeds
+      if (i >= 0 && i < kGroup) {
+        aI[i] = fmaf(tr[t], xi, aI[i]);
+        aQ[i] = fmaf(tr[t], xq, aQ[i]);
+        if constexpr (kComplex) {
+          aI[i] = fmaf(-ti[t], xq, aI[i]);
+          aQ[i] = fmaf(ti[t], xi, aQ[i]);
+        }
+      }
     }
   }
+  __syncthreads();  // every thread is done with the slab; partials go over it
+
+  // 3. cross-phase sum: partials [plane][r][frame], then one thread per
+  // frame and plane adds the R phases in order
+  float* s_p = s_slab;
+#pragma unroll
+  for (int i = 0; i < kGroup; ++i) {
+    s_p[r * B::kLdP + grp * kGroup + i] = aI[i];
+    s_p[(kR + r) * B::kLdP + grp * kGroup + i] = aQ[i];
+  }
+  __syncthreads();
+  for (int idx = tid; idx < 2 * kFrames; idx += B::kThreads) {
+    const int comp = idx >= kFrames;
+    const int f = idx - comp * kFrames;
+    if (m0 + f >= n_frames) continue;
+    const float* p = s_p + comp * kR * B::kLdP + f;
+    float y = 0.0f;
+#pragma unroll 16
+    for (int rr = 0; rr < kR; ++rr) y += p[rr * B::kLdP];
+    (comp ? yQ : yI)[c * out_stride + m0 + f] = y;
+  }
+}
+
+template <int kTpp, bool kComplex, int kFrames, int kGroup>
+int launch(const float* xI, const float* xQ, long long rows,
+           long long in_stride, int vec, const float* gr, const float* gi,
+           long long n_frames, float* yI, float* yQ, long long out_stride,
+           cudaStream_t stream) {
+  using B = Block<kTpp, kComplex, kFrames, kGroup>;
+  auto kernel = polyphase_kernel<kTpp, kComplex, kFrames, kGroup>;
+  if (B::kSmem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(B::kSmem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  dim3 grid(static_cast<unsigned>((n_frames + kFrames - 1) / kFrames),
+            static_cast<unsigned>(rows));
+  kernel<<<grid, B::kThreads, B::kSmem, stream>>>(
+      xI, xQ, in_stride, vec, gr, gi, n_frames, yI, yQ, out_stride);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -97,34 +226,34 @@ polyphase_kernel(const float* __restrict__ xI, const float* __restrict__ xQ,
 extern "C" {
 
 // xI/xQ: float32 (rows, >= n_frames*R + T - R) planar input, row stride
-// in_stride elements. gr/gi: float32[T] conv-ordered taps, T a multiple
-// of R. yI/yQ: float32 outputs, row stride out_stride elements.
+// in_stride elements; vec = 1 only if both base pointers and the row
+// stride in bytes are multiples of 16. gr/gi: float32[T] conv-ordered taps.
+// (T, R) must be (640, 80) (complex taps) or (2400, 80) (real taps; gi is
+// not read). yI/yQ: float32 outputs, row stride out_stride elements.
 // Returns 0 on a good launch, else the CUDA error code.
 int polyphase_decimate(const void* xI, const void* xQ, long long rows,
-                       long long in_stride, const void* gr, const void* gi,
-                       int T, int R, long long n_frames, void* yI, void* yQ,
-                       long long out_stride, void* stream) {
+                       long long in_stride, int vec, const void* gr,
+                       const void* gi, int T, int R, long long n_frames,
+                       void* yI, void* yQ, long long out_stride,
+                       void* stream) {
   if (rows <= 0 || n_frames <= 0) return 0;
-  if (rows > 65535 || T <= 0 || R <= 0 || T % R != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows > 65535 || R != kR) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* i = static_cast<const float*>(xI);
+  const auto* q = static_cast<const float*>(xQ);
+  const auto* tr = static_cast<const float*>(gr);
+  const auto* ti = static_cast<const float*>(gi);
+  auto* oI = static_cast<float*>(yI);
+  auto* oQ = static_cast<float*>(yQ);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (T == kStage1Tpp * kR) {
+    return launch<kStage1Tpp, true, kStage1Frames, kStage1Group>(
+        i, q, rows, in_stride, vec, tr, ti, n_frames, oI, oQ, out_stride, s);
   }
-  const size_t smem = 2 * static_cast<size_t>(T) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        polyphase_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  if (T == kStage2Tpp * kR) {
+    return launch<kStage2Tpp, false, kStage2Frames, kStage2Group>(
+        i, q, rows, in_stride, vec, tr, ti, n_frames, oI, oQ, out_stride, s);
   }
-  dim3 grid(static_cast<unsigned>((n_frames + kFramesPerBlock - 1) /
-                                  kFramesPerBlock),
-            static_cast<unsigned>(rows));
-  polyphase_kernel<<<grid, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xI), static_cast<const float*>(xQ),
-      in_stride, static_cast<const float*>(gr), static_cast<const float*>(gi),
-      T, R, n_frames, static_cast<float*>(yI), static_cast<float*>(yQ),
-      out_stride);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -11,9 +11,10 @@ fallback.
   front end. It computes the partial product below as a TF32 GEMM on
   the tensor cores, with the taps split into TF32 hi + lo parts on the
   host (``tf32_split``) so the result keeps float32 accuracy.
-- ``csrc/polyphase.cu``, the direct form: float32 planes through any
-  filter (stage 2, float32 stage-1 input). One warp per output frame,
-  lanes over the taps.
+- ``csrc/polyphase.cu``, the direct form: float32 planes through the
+  stage-1 filter or a real-tap stage-2 filter (``DIRECT_SHAPES``). A
+  block stages its input slab in shared memory once; each thread holds
+  one phase's taps in registers and a tile of frames.
 
 Both replace ``rtlsdr_wsprd_tpu/frontend/pallas_decimate.py``
 ``decimate_stage1_pallas``; each source holds its own note on what
@@ -47,13 +48,16 @@ _vp, _ll, _ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # route -> (library name, source, C function, its argument types)
 _KERNELS = {
     "direct": ("polyphase", _CSRC / "polyphase.cu", "polyphase_decimate",
-               [_vp, _vp, _ll, _ll, _vp, _vp, _ci, _ci, _ll, _vp, _vp, _ll,
-                _vp]),
+               [_vp, _vp, _ll, _ll, _ci, _vp, _vp, _ci, _ci, _ll, _vp, _vp,
+                _ll, _vp]),
     "tc": ("polyphase_tc", _CSRC / "polyphase_tc.cu", "polyphase_tc_decimate",
            [_vp, _vp, _ll, _ll, _ci, _vp, _ll, _vp, _vp, _ll, _vp]),
 }
 # the tensor-core kernel's filter (T, R)
 TC_SHAPE = (640, 80)
+# the direct form's two instantiations: filter (T, R) -> whether it takes
+# complex taps (stage 1) or real taps only (stage 2)
+DIRECT_SHAPES = {(640, 80): True, (2400, 80): False}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -180,6 +184,14 @@ class PolyphaseFilter:
         taps of shape TC_SHAPE (stage 1)."""
         return (self.T, self.R) == TC_SHAPE and bool(np.any(self.gi))
 
+    @property
+    def direct_capable(self) -> bool:
+        """Whether the direct form takes this filter: a shape of
+        DIRECT_SHAPES, with real taps where that instantiation needs
+        them."""
+        cplx = DIRECT_SHAPES.get((self.T, self.R))
+        return cplx is not None and (cplx or not np.any(self.gi))
+
 
 def _center_f32(x: torch.Tensor) -> torch.Tensor:
     """uint8 RTL bytes -> centred float32; floats pass through."""
@@ -213,7 +225,8 @@ def _route(device_type: str, dtype: torch.dtype,
            filt: PolyphaseFilter) -> str:
     """The kernel a CUDA call takes: ``"tc"`` for uint8 planes through a
     filter the tensor-core kernel takes (stage 1), ``"direct"`` for
-    float32 planes; uint8 through any other filter raises."""
+    float32 planes through a filter the direct form takes; any other
+    call raises."""
     if device_type != "cuda":
         raise ValueError(f"no kernel for device type {device_type!r}")
     if dtype == torch.uint8:
@@ -222,6 +235,10 @@ def _route(device_type: str, dtype: torch.dtype,
                 f"uint8 planes need the stage-1 filter (T, R) = {TC_SHAPE} "
                 f"with complex taps, got ({filt.T}, {filt.R})")
         return "tc"
+    if not filt.direct_capable:
+        raise ValueError(
+            f"float32 planes need the stage-1 filter (T, R) = (640, 80) or "
+            f"a real-tap (2400, 80) one, got ({filt.T}, {filt.R})")
     return "direct"
 
 
@@ -263,16 +280,17 @@ def polyphase_decimate(xI: torch.Tensor, xQ: torch.Tensor,
     tabs = filt.tensors(xI.device)
     lib = _load_kernel(route)
     stream = torch.cuda.current_stream(xI.device).cuda_stream
+    # 16-byte loads where both planes' rows start 16-byte aligned
+    row_bytes = rI.stride(0) * rI.element_size() if rows > 1 else 0
+    vec = int((rI.data_ptr() | rQ.data_ptr() | row_bytes) % 16 == 0)
     if route == "tc":
-        # 16-byte loads where both planes' rows start 16-byte aligned
-        vec = int((rI.data_ptr() | rQ.data_ptr() | rI.stride(0)) % 16 == 0)
         rc = lib.polyphase_tc_decimate(
             rI.data_ptr(), rQ.data_ptr(), rows, rI.stride(0), vec,
             tabs.b_frag.data_ptr(), n_frames, out[0].data_ptr(),
             out[1].data_ptr(), n_frames, stream)
     else:
         rc = lib.polyphase_decimate(
-            rI.data_ptr(), rQ.data_ptr(), rows, rI.stride(0),
+            rI.data_ptr(), rQ.data_ptr(), rows, rI.stride(0), vec,
             tabs.gr.data_ptr(), tabs.gi.data_ptr(), filt.T, filt.R, n_frames,
             out[0].data_ptr(), out[1].data_ptr(), n_frames, stream)
     if rc != 0:

@@ -258,24 +258,33 @@ def test_wrapper_takes_plain_version_only_on_cpu():
 def test_kernel_matches_plain_on_cuda():
     """Both hand-written CUDA kernels against the plain version on the
     card: the tensor-core kernel on uint8 stage 1 (aligned rows, and
-    rows at a 1-byte offset), the direct form on float32 stage 1 and
-    stage 2, each call counted on its own kernel; within 1e-3 (float32
-    sums in another order at +-128 input scale). Runs only with a
-    card."""
+    rows at a 1-byte offset), the float32 kernel on stage 1 and stage 2
+    (frame counts that end in a ragged block, a single 1-D row, and rows
+    at a 1-element offset, which take its one-float-a-thread loads),
+    each call counted on its own kernel; within 1e-3 (float32 sums in
+    another order at +-128 input scale). Runs only with a card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (chip_smoke.py runs this check there)")
     rng = np.random.default_rng(3)
-    for filt, n, u8, off, route in (
-            (pdec.STAGE1, 8000, True, 0, "tc"),
-            (pdec.STAGE1, 129, True, 1, "tc"),
-            (pdec.STAGE1, 300, False, 0, "direct"),
-            (pdec.STAGE2, 100, False, 0, "direct")):
+    # filter, frames, rows (None: one 1-D row), uint8, row offset, route
+    for filt, n, C, u8, off, route in (
+            (pdec.STAGE1, 8000, 8, True, 0, "tc"),
+            (pdec.STAGE1, 129, 8, True, 1, "tc"),
+            (pdec.STAGE1, 300, 8, False, 0, "direct"),
+            (pdec.STAGE1, 8003, 8, False, 0, "direct"),
+            (pdec.STAGE1, 300, 8, False, 1, "direct"),
+            (pdec.STAGE1, 30_001, None, False, 0, "direct"),
+            (pdec.STAGE2, 100, 8, False, 0, "direct"),
+            (pdec.STAGE2, 3701, 8, False, 0, "direct"),
+            (pdec.STAGE2, 3700, 8, False, 1, "direct"),
+            (pdec.STAGE2, 3750, None, False, 0, "direct")):
         L = n * filt.R + filt.T - filt.R
+        shape = (2, L + off) if C is None else (2, C, L + off)
         if u8:
-            h = rng.integers(0, 256, (2, 8, L + off), dtype=np.uint8)
+            h = rng.integers(0, 256, shape, dtype=np.uint8)
         else:
-            h = rng.normal(0, 10, (2, 8, L + off)).astype(np.float32)
-        xI, xQ = (torch.from_numpy(a).cuda()[:, off:] for a in h)
+            h = rng.normal(0, 10, shape).astype(np.float32)
+        xI, xQ = (torch.from_numpy(a).cuda()[..., off:] for a in h)
         before = dict(polyphase_decimate.launches)
         kI, kQ = polyphase_decimate(xI, xQ, filt, n)
         other = "direct" if route == "tc" else "tc"
@@ -283,5 +292,6 @@ def test_kernel_matches_plain_on_cuda():
         assert polyphase_decimate.launches[other] == before[other]
         pI, pQ = polyphase_plain(xI, xQ, filt, n)
         torch.cuda.synchronize()
+        assert kI.shape == pI.shape == xI.shape[:-1] + (n,)
         torch.testing.assert_close(kI, pI, rtol=0, atol=1e-3)
         torch.testing.assert_close(kQ, pQ, rtol=0, atol=1e-3)

@@ -1,9 +1,13 @@
-"""The tensor-core stage-1 kernel's host side on the CPU: its split TF32
-tables, its arithmetic and tile walk emulated in numpy/torch against the
-plain version and the JAX package, its routing, and its tables following
-``convert.load_state_dict``. The kernel itself runs only on a card
+"""Both polyphase kernels' host side on the CPU: the tensor-core stage-1
+kernel's split TF32 tables, its arithmetic and tile walk, and the float32
+kernel's slab and per-phase register-tile walk, each emulated in
+numpy/torch against the plain version and the JAX package; the routing
+between them; and the tables following ``convert.load_state_dict``. The
+kernels themselves run only on a card
 (``test_torch_frontend.py::test_kernel_matches_plain_on_cuda`` and
 ``chip_smoke.py``)."""
+
+import re
 
 import numpy as np
 import pytest
@@ -13,9 +17,11 @@ import jax.numpy as jnp
 
 from rtlsdr_wsprd_tpu.frontend import decimate as jdec
 from rtlsdr_wsprd_tpu.frontend.filters import R1, STAGE1_TAPS
+from rtlsdr_wsprd_tpu.frontend.pallas_decimate import decimate_stage1_pallas
 from rtlsdr_wsprd_tpu_torch import convert
 from rtlsdr_wsprd_tpu_torch.frontend import decimate as pdec
 from rtlsdr_wsprd_tpu_torch.frontend.polyphase import (
+    _KERNELS,
     PolyphaseFilter,
     _route,
     polyphase_plain,
@@ -149,6 +155,12 @@ def test_route_picks_the_kernel(dtype, stage, route):
 
 # a 640/80 filter with real taps: the stage-1 shape, not its taps
 _REAL_640 = PolyphaseFilter(np.hanning(STAGE1_TAPS).astype(np.complex64), R1)
+# filters neither instantiation of polyphase.cu takes: stage 2's shape with
+# complex taps, 9 taps per phase, and a decimation other than 80
+_COMPLEX_2400 = PolyphaseFilter(
+    pdec.STAGE2.gr + 1j * np.hanning(pdec.STAGE2.T), 80)
+_TPP9 = PolyphaseFilter(np.hanning(720).astype(np.complex64), 80)
+_R64 = PolyphaseFilter(np.hanning(640) * (1 + 1j), 64)
 
 
 @pytest.mark.parametrize("device_type, filt", [
@@ -162,6 +174,108 @@ def test_route_refuses_what_no_kernel_takes(device_type, filt):
     _route raises rather than pick one."""
     with pytest.raises(ValueError):
         _route(device_type, torch.uint8, filt)
+
+
+@pytest.mark.parametrize("filt", [_COMPLEX_2400, _TPP9, _R64],
+                         ids=["complex-2400", "tpp9-720", "r64-640"])
+def test_route_refuses_float32_no_instantiation_takes(filt):
+    """float32 planes go to polyphase.cu, which is built for two filters
+    only (640/80 with complex taps, 2400/80 with real taps): any other
+    filter raises rather than launch."""
+    with pytest.raises(ValueError):
+        _route("cuda", torch.float32, filt)
+
+
+def _direct_blocks() -> dict[str, tuple[int, int]]:
+    """polyphase.cu's (frames per block, frames per thread) of each
+    instantiation, read from its source."""
+    src = _KERNELS["direct"][1].read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    return {f"STAGE{k}": (const(f"kStage{k}Frames"), const(f"kStage{k}Group"))
+            for k in (1, 2)}
+
+
+def _direct_emulate(xI, xQ, filt, n, frames, group):
+    """polyphase.cu's walk in numpy float32. Per (row, block of `frames`
+    output frames): the slab of frames + tpp - 1 rows of R samples, rows
+    past the input's needed end 0. Thread (r, grp) walks slab rows
+    grp*group + j, j < group + tpp - 1, of its phase r, and row j feeds
+    frame i = j - t of its group through tap block t, so each of its
+    `group` partials per plane adds t rising (complex taps: the gr
+    product, then the gi one). Then each frame adds the R phases'
+    partials, r rising."""
+    R, tpp = filt.R, filt.tpp
+    gr = filt.gr.reshape(tpp, R)                      # [t, r]
+    gi = filt.gi.reshape(tpp, R)
+    cplx = bool(np.any(gi))
+    C = xI.shape[0]
+    nb = -(-n // frames)
+    rows = frames + tpp - 1
+    slab = np.zeros((2, C, nb, rows, R), np.float32)  # plane, c, block, s, r
+    for b in range(nb):
+        rv = min(rows, n + tpp - 1 - b * frames)
+        for p, x in enumerate((xI, xQ)):
+            seg = x[:, b * frames * R:(b * frames + rv) * R]
+            slab[p, :, b, :rv] = seg.reshape(C, rv, R)
+    ng = frames // group
+    aI = np.zeros((C, nb, ng, group, R), np.float32)  # c, block, grp, i, r
+    aQ = np.zeros_like(aI)
+    for j in range(group + tpp - 1):
+        xi = slab[0][:, :, j + group * np.arange(ng)]  # [c, block, grp, r]
+        xq = slab[1][:, :, j + group * np.arange(ng)]
+        for t in range(max(0, j - group + 1), min(tpp, j + 1)):
+            i = j - t
+            aI[..., i, :] += gr[t] * xi
+            aQ[..., i, :] += gr[t] * xq
+            if cplx:
+                aI[..., i, :] += -gi[t] * xq
+                aQ[..., i, :] += gi[t] * xi
+    y = np.zeros((2, C, nb * frames), np.float32)
+    for p, a in enumerate((aI, aQ)):
+        a = a.reshape(C, nb * frames, R)
+        for r in range(R):
+            y[p] += a[..., r]
+    return y[:, :, :n]
+
+
+@pytest.mark.parametrize("stage", ["STAGE1", "STAGE2"])
+def test_direct_walk_matches_plain_and_jax(stage):
+    """polyphase.cu's block walk at its own block shape, float32 C=2, n
+    crossing two block edges and ending in a ragged block: within 1e-4 of
+    the output scale of the plain version and of the JAX package's XLA
+    path (stage 2 on N(0,30) rows, its tolerance in test_stage2_matches_xla);
+    for stage 1 on N(0,1) rows also within 1e-4 of the XLA path and the
+    Pallas kernel in interpret mode, as test_stage1_float_matches_xla_and_pallas
+    holds them."""
+    frames, group = _direct_blocks()[stage]
+    filt = getattr(pdec, stage)
+    n = 2 * frames + frames // 2 + 3
+    L = n * filt.R + filt.T - filt.R
+    rng = np.random.default_rng(40 + filt.tpp)
+    sd = 1.0 if stage == "STAGE1" else 30.0
+    xI, xQ = (rng.normal(0, sd, (2, L)).astype(np.float32) for _ in range(2))
+    y = _direct_emulate(xI, xQ, filt, n, frames, group)
+
+    pI, pQ = polyphase_plain(torch.from_numpy(xI), torch.from_numpy(xQ),
+                             filt, n)
+    scale = float(np.abs(pI.numpy()).max())
+    np.testing.assert_allclose(y[0], pI.numpy(), rtol=0, atol=1e-4 * scale)
+    np.testing.assert_allclose(y[1], pQ.numpy(), rtol=0, atol=1e-4 * scale)
+    if stage == "STAGE2":
+        refs = [jdec.decimate_stage2_xla(jnp.asarray(xI), jnp.asarray(xQ), n)]
+        atol = 1e-4 * scale
+    else:
+        refs = [jdec.decimate_stage1_xla(jnp.asarray(xI), jnp.asarray(xQ), n)]
+        refs.append([np.stack(z) for z in zip(*(
+            decimate_stage1_pallas(jnp.asarray(xI[c]), jnp.asarray(xQ[c]), n,
+                                   interpret=True) for c in range(2)))])
+        atol = 1e-4
+    for rI, rQ in refs:
+        np.testing.assert_allclose(y[0], np.asarray(rI), rtol=0, atol=atol)
+        np.testing.assert_allclose(y[1], np.asarray(rQ), rtol=0, atol=atol)
 
 
 def test_split_tables_follow_load_state_dict():
