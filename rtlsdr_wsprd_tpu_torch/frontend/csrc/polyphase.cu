@@ -87,16 +87,15 @@ struct Block {
   // one plane's slab in floats, padding included (a multiple of 4)
   static constexpr int kPlane =
       kRows * kR + kPad * ((kRows + kGroup - 1) / kGroup);
-  static constexpr int kBuf = 2 * kPlane;   // one slab, both planes
   static constexpr int kLdP = kFrames + 1;  // partials row, floats
-  static_assert(2 * kR * kLdP <= kBuf, "partials fit over the slab");
+  static_assert(2 * kR * kLdP <= 2 * kPlane, "partials fit over the slab");
   // threads per frame and plane in the cross-phase sum: the most, up to
   // 8, that the block has (each adds kR / kSplit phases)
   static constexpr int kSplit = 16 * kFrames <= kThreads  ? 8
                                 : 8 * kFrames <= kThreads ? 4
                                 : 4 * kFrames <= kThreads ? 2
                                                           : 1;
-  static constexpr size_t kSmem = 2 * kBuf * sizeof(float);  // two slabs
+  static constexpr size_t kSmem = 2 * kPlane * sizeof(float);
 };
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
@@ -105,73 +104,56 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
                "l"(src));
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
-}
-
-// Issue the copies of a tile's slab (both planes) into dst: element (s, r)
-// of a plane at s R + r + kPad (s / kGroup); rows from `rows_valid` on are
-// zero. 16-byte copies if vec, else 4-byte ones.
-template <class B, int kGroup>
-__device__ __forceinline__ void stage_slab(float* dst, const float* pI,
-                                           const float* pQ, int rows_valid,
-                                           int vec) {
-  const int tid = threadIdx.x;
-  if (vec) {
-    constexpr int kChunks = B::kRows * kR / 4;  // 16-byte chunks a plane
-    for (int q = tid; q < 2 * kChunks; q += B::kThreads) {
-      const int plane = q >= kChunks;
-      const int e = 4 * (q - plane * kChunks);
-      const int s = e / kR;
-      float* d = dst + plane * B::kPlane + e + kPad * (s / kGroup);
-      if (s < rows_valid) {
-        cp_async16(d, (plane ? pQ : pI) + e);
-      } else {
-        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-    }
-  } else {
-    for (int e = tid; e < B::kRows * kR; e += B::kThreads) {
-      const int s = e / kR;
-      float* d = dst + e + kPad * (s / kGroup);
-      if (s < rows_valid) {
-        cp_async4(d, pI + e);
-        cp_async4(d + B::kPlane, pQ + e);
-      } else {
-        d[0] = 0.0f;
-        d[B::kPlane] = 0.0f;
-      }
-    }
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
 template <int kTpp, bool kComplex, int kFrames, int kGroup>
 __global__ void __launch_bounds__(
     (Block<kTpp, kComplex, kFrames, kGroup>::kThreads))
 polyphase_kernel(const float* __restrict__ xI, const float* __restrict__ xQ,
                  long long in_stride, int vec, const float* __restrict__ gr,
                  const float* __restrict__ gi, long long n_frames,
-                 long long tiles_per_row, long long n_tiles,
                  float* __restrict__ yI, float* __restrict__ yQ,
                  long long out_stride) {
   using B = Block<kTpp, kComplex, kFrames, kGroup>;
-  extern __shared__ __align__(16) float s_slab[];  // [2 slabs][2][kPlane]
+  extern __shared__ __align__(16) float s_slab[];  // [2][kPlane]
 
   const int tid = threadIdx.x;
-  // tile -> (row, first frame, valid slab rows, input of the row's slab)
-  auto tile_at = [&](long long tile, long long& c, long long& m0,
-                     int& rows_valid) {
-    c = tile / tiles_per_row;
-    m0 = (tile - c * tiles_per_row) * kFrames;
-    // the row's slab rows are 0 .. n_frames + tpp - 2
-    const long long left = n_frames + (kTpp - 1) - m0;
-    rows_valid = left < B::kRows ? static_cast<int>(left) : B::kRows;
-  };
+  const long long c = blockIdx.y;
+  const long long m0 = static_cast<long long>(blockIdx.x) * kFrames;
+  // the row's slab rows are 0 .. n_frames + tpp - 2
+  const long long left = n_frames + (kTpp - 1) - m0;
+  const int rows_valid = left < B::kRows ? static_cast<int>(left) : B::kRows;
+  const float* pI = xI + c * in_stride + m0 * kR;
+  const float* pQ = xQ + c * in_stride + m0 * kR;
 
-  // thread (r, grp): phase r's taps in registers for every tile
+  // 1. the slab of both planes, once; element (s, r) of a plane at
+  // s R + r + kPad (s / kGroup), rows past rows_valid zero
+  if (vec) {
+    constexpr int kChunks = B::kRows * kR / 4;  // 16-byte chunks a plane
+    for (int q = tid; q < 2 * kChunks; q += B::kThreads) {
+      const int plane = q >= kChunks;
+      const int e = 4 * (q - plane * kChunks);
+      const int s = e / kR;
+      float* dst = s_slab + plane * B::kPlane + e + kPad * (s / kGroup);
+      if (s < rows_valid) {
+        cp_async16(dst, (plane ? pQ : pI) + e);
+      } else {
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  } else {
+    for (int e = tid; e < B::kRows * kR; e += B::kThreads) {
+      const int s = e / kR;
+      const int at = e + kPad * (s / kGroup);
+      const bool in = s < rows_valid;
+      s_slab[at] = in ? pI[e] : 0.0f;
+      s_slab[B::kPlane + at] = in ? pQ[e] : 0.0f;
+    }
+  }
+  __syncthreads();
+
+  // 2. thread (r, grp): phase r's taps in registers, kGroup frames of
+  // partials per plane
   const int r = tid % kR;
   const int grp = tid / kR;
   float tr[kTpp];
@@ -181,88 +163,58 @@ polyphase_kernel(const float* __restrict__ xI, const float* __restrict__ xQ,
     tr[t] = __ldg(gr + t * kR + r);
     if constexpr (kComplex) ti[t] = __ldg(gi + t * kR + r);
   }
-
-  // tiles blockIdx.x, blockIdx.x + gridDim.x, ...; the next tile's slab
-  // is copied into the other buffer while this one's is used
-  long long tile = blockIdx.x;
-  long long c, m0;
-  int rows_valid;
-  tile_at(tile, c, m0, rows_valid);
-  stage_slab<B, kGroup>(s_slab, xI + c * in_stride + m0 * kR,
-                        xQ + c * in_stride + m0 * kR, rows_valid, vec);
-  for (int buf = 0; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
-    float* slab = s_slab + buf * B::kBuf;
-    const long long next = tile + gridDim.x;
-    if (next < n_tiles) {
-      long long nc, nm0;
-      int nvalid;
-      tile_at(next, nc, nm0, nvalid);
-      stage_slab<B, kGroup>(s_slab + (buf ^ 1) * B::kBuf,
-                            xI + nc * in_stride + nm0 * kR,
-                            xQ + nc * in_stride + nm0 * kR, nvalid, vec);
-    } else {
-      asm volatile("cp.async.commit_group;\n" ::);
-    }
-    // this tile's copies (all but the newest group) have landed
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-    __syncthreads();
-
-    // 1. kGroup frames of partials per plane: slab row grp kGroup + j
-    // feeds frame i = j - t of the group through tap block t
-    const float* sI = slab + grp * (kGroup * kR + kPad) + r;
-    const float* sQ = sI + B::kPlane;
-    float aI[kGroup] = {};
-    float aQ[kGroup] = {};
+  const float* sI = s_slab + grp * (kGroup * kR + kPad) + r;
+  const float* sQ = sI + B::kPlane;
+  float aI[kGroup] = {};
+  float aQ[kGroup] = {};
 #pragma unroll
-    for (int j = 0; j < kGroup + kTpp - 1; ++j) {
-      const int off = j * kR + kPad * (j / kGroup);
-      const float xi = sI[off];
-      const float xq = sQ[off];
+  for (int j = 0; j < kGroup + kTpp - 1; ++j) {
+    // slab row grp kGroup + j
+    const int off = j * kR + kPad * (j / kGroup);
+    const float xi = sI[off];
+    const float xq = sQ[off];
 #pragma unroll
-      for (int t = 0; t < kTpp; ++t) {
-        const int i = j - t;
-        if (i >= 0 && i < kGroup) {
-          aI[i] = fmaf(tr[t], xi, aI[i]);
-          aQ[i] = fmaf(tr[t], xq, aQ[i]);
-          if constexpr (kComplex) {
-            aI[i] = fmaf(-ti[t], xq, aI[i]);
-            aQ[i] = fmaf(ti[t], xi, aQ[i]);
-          }
+    for (int t = 0; t < kTpp; ++t) {
+      const int i = j - t;  // the frame of the group this tap block feeds
+      if (i >= 0 && i < kGroup) {
+        aI[i] = fmaf(tr[t], xi, aI[i]);
+        aQ[i] = fmaf(tr[t], xq, aQ[i]);
+        if constexpr (kComplex) {
+          aI[i] = fmaf(-ti[t], xq, aI[i]);
+          aQ[i] = fmaf(ti[t], xi, aQ[i]);
         }
       }
     }
-    __syncthreads();  // every thread is done with the slab
+  }
+  __syncthreads();  // every thread is done with the slab; partials go over it
 
-    // 2. cross-phase sum: partials [plane][r][frame] over the slab; kSplit
-    // neighbouring lanes per frame and plane each add kR / kSplit phases in
-    // order, then a butterfly of shuffles adds their sums
-    float* s_p = slab;
+  // 3. cross-phase sum: partials [plane][r][frame] over the slab; kSplit
+  // neighbouring lanes per frame and plane each add kR / kSplit phases in
+  // order, then a butterfly of shuffles adds their sums
+  float* s_p = s_slab;
 #pragma unroll
-    for (int i = 0; i < kGroup; ++i) {
-      s_p[r * B::kLdP + grp * kGroup + i] = aI[i];
-      s_p[(kR + r) * B::kLdP + grp * kGroup + i] = aQ[i];
+  for (int i = 0; i < kGroup; ++i) {
+    s_p[r * B::kLdP + grp * kGroup + i] = aI[i];
+    s_p[(kR + r) * B::kLdP + grp * kGroup + i] = aQ[i];
+  }
+  __syncthreads();
+  if (tid < 2 * kFrames * B::kSplit) {  // whole warps
+    constexpr int kPer = kR / B::kSplit;
+    const int out = tid / B::kSplit;
+    const int part = tid % B::kSplit;
+    const int comp = out >= kFrames;
+    const int f = out - comp * kFrames;
+    const float* p = s_p + (comp * kR + part * kPer) * B::kLdP + f;
+    float y = 0.0f;
+#pragma unroll
+    for (int rr = 0; rr < kPer; ++rr) y += p[rr * B::kLdP];
+#pragma unroll
+    for (int o = 1; o < B::kSplit; o <<= 1) {
+      y += __shfl_xor_sync(0xffffffffu, y, o);
     }
-    __syncthreads();
-    if (tid < 2 * kFrames * B::kSplit) {  // whole warps
-      constexpr int kPer = kR / B::kSplit;
-      const int out = tid / B::kSplit;
-      const int part = tid % B::kSplit;
-      const int comp = out >= kFrames;
-      const int f = out - comp * kFrames;
-      const float* p = s_p + (comp * kR + part * kPer) * B::kLdP + f;
-      float y = 0.0f;
-#pragma unroll
-      for (int rr = 0; rr < kPer; ++rr) y += p[rr * B::kLdP];
-#pragma unroll
-      for (int o = 1; o < B::kSplit; o <<= 1) {
-        y += __shfl_xor_sync(0xffffffffu, y, o);
-      }
-      if (part == 0 && m0 + f < n_frames) {
-        (comp ? yQ : yI)[c * out_stride + m0 + f] = y;
-      }
+    if (part == 0 && m0 + f < n_frames) {
+      (comp ? yQ : yI)[c * out_stride + m0 + f] = y;
     }
-    __syncthreads();  // the partials are read before this slab is refilled
-    if (next < n_tiles) tile_at(next, c, m0, rows_valid);
   }
 }
 
@@ -273,31 +225,16 @@ int launch(const float* xI, const float* xQ, long long rows,
            cudaStream_t stream) {
   using B = Block<kTpp, kComplex, kFrames, kGroup>;
   auto kernel = polyphase_kernel<kTpp, kComplex, kFrames, kGroup>;
-  cudaError_t e = cudaSuccess;
   if (B::kSmem > 48 * 1024) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(B::kSmem));
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(B::kSmem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  // one wave of resident blocks, each walking its share of the tiles
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
-      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                  dev)) != cudaSuccess ||
-      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, B::kThreads, B::kSmem)) != cudaSuccess) {
-    return static_cast<int>(e);
-  }
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const long long tiles_per_row = (n_frames + kFrames - 1) / kFrames;
-  const long long n_tiles = tiles_per_row * rows;
-  const long long wave = static_cast<long long>(per_sm) * sms;
-  const unsigned grid =
-      static_cast<unsigned>(n_tiles < wave ? n_tiles : wave);
+  dim3 grid(static_cast<unsigned>((n_frames + kFrames - 1) / kFrames),
+            static_cast<unsigned>(rows));
   kernel<<<grid, B::kThreads, B::kSmem, stream>>>(
-      xI, xQ, in_stride, vec, gr, gi, n_frames, tiles_per_row, n_tiles, yI,
-      yQ, out_stride);
+      xI, xQ, in_stride, vec, gr, gi, n_frames, yI, yQ, out_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -317,7 +254,7 @@ int polyphase_decimate(const void* xI, const void* xQ, long long rows,
                        void* yI, void* yQ, long long out_stride,
                        void* stream) {
   if (rows <= 0 || n_frames <= 0) return 0;
-  if (R != kR) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows > 65535 || R != kR) return static_cast<int>(cudaErrorInvalidValue);
   const auto* i = static_cast<const float*>(xI);
   const auto* q = static_cast<const float*>(xQ);
   const auto* tr = static_cast<const float*>(gr);
