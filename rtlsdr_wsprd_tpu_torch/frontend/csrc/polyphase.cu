@@ -49,12 +49,20 @@
 //    sum writes the R partials of every frame and plane to shared memory
 //    (over the slab) and one thread per frame and plane adds them, r = 0 to
 //    R - 1: R adds a frame, against tpp R FMAs.
-// 5. 128-frame blocks left small calls on a few SMs. kFrames is chosen per
-//    instantiation by timing (PERF.md keeps the timings): short blocks put
-//    more of them in flight at C = 8 x 99 and C = 1 frames, at the price of
-//    a larger halo share, (tpp - 1) / kFrames of the slab.
+// 5. 128-frame blocks left small calls on a few SMs. Both instantiations
+//    take 32 frames a block (8 a thread in stage 1, 16 in stage 2), the
+//    fastest of six shapes each over the front end's calls (PERF.md keeps
+//    the timings): C = 8 x 99 stage-2 frames launch 32 blocks and
+//    C = 1 x 3,750 launch 118, at the price of re-reading a halo of
+//    (tpp - 1) / 32 of the slab from L2.
 // Ragged edge: slab rows past the row's last needed input row are zero,
 // and frames past n are not written.
+//
+// Two variants were timed and were no faster: a persistent walk in which
+// each block copies its next tile's slab while it computes the current
+// one, and a cross-phase sum split over up to 8 lanes (PERF.md). What
+// remains is one slab load, then the FMAs, then the sum, per block; other
+// blocks on the SM overlap them.
 //
 // Plain C interface, loaded with ctypes. The function launches on the
 // caller's stream, does not synchronise and allocates nothing; it returns
@@ -68,20 +76,19 @@ constexpr int kR = 80;     // decimation: samples per slab row
 constexpr int kPad = 16;   // floats of padding after every kGroup slab rows
 
 // the two instantiations: taps per phase, output frames per block and
-// frames per thread (chosen by timing on the card, PERF.md)
+// frames per thread (chosen by timing on the card with
+// tools/polyphase_blocks.py, PERF.md)
 constexpr int kStage1Tpp = 8;
-constexpr int kStage1Frames = 64;
+constexpr int kStage1Frames = 32;
 constexpr int kStage1Group = 8;
 constexpr int kStage2Tpp = 30;
-constexpr int kStage2Frames = 64;
+constexpr int kStage2Frames = 32;
 constexpr int kStage2Group = 16;
 
 template <int kTpp, bool kComplex, int kFrames, int kGroup>
 struct Block {
-  static constexpr int kGroups = kFrames / kGroup;
-  static_assert(kFrames % kGroup == 0 && kFrames % 32 == 0 && kGroups % 2 == 0,
-                "block shape: whole warps, frames a multiple of 32");
-  static constexpr int kThreads = kR * kGroups;
+  static_assert(kFrames % kGroup == 0 && kFrames % 32 == 0, "block shape");
+  static constexpr int kThreads = kR * (kFrames / kGroup);
   static_assert(kThreads <= 1024, "too many threads");
   static constexpr int kRows = kFrames + kTpp - 1;  // slab rows
   // one plane's slab in floats, padding included (a multiple of 4)
@@ -89,12 +96,6 @@ struct Block {
       kRows * kR + kPad * ((kRows + kGroup - 1) / kGroup);
   static constexpr int kLdP = kFrames + 1;  // partials row, floats
   static_assert(2 * kR * kLdP <= 2 * kPlane, "partials fit over the slab");
-  // threads per frame and plane in the cross-phase sum: the most, up to
-  // 8, that the block has (each adds kR / kSplit phases)
-  static constexpr int kSplit = 16 * kFrames <= kThreads  ? 8
-                                : 8 * kFrames <= kThreads ? 4
-                                : 4 * kFrames <= kThreads ? 2
-                                                          : 1;
   static constexpr size_t kSmem = 2 * kPlane * sizeof(float);
 };
 
@@ -188,9 +189,8 @@ polyphase_kernel(const float* __restrict__ xI, const float* __restrict__ xQ,
   }
   __syncthreads();  // every thread is done with the slab; partials go over it
 
-  // 3. cross-phase sum: partials [plane][r][frame] over the slab; kSplit
-  // neighbouring lanes per frame and plane each add kR / kSplit phases in
-  // order, then a butterfly of shuffles adds their sums
+  // 3. cross-phase sum: partials [plane][r][frame], then one thread per
+  // frame and plane adds the R phases in order
   float* s_p = s_slab;
 #pragma unroll
   for (int i = 0; i < kGroup; ++i) {
@@ -198,23 +198,15 @@ polyphase_kernel(const float* __restrict__ xI, const float* __restrict__ xQ,
     s_p[(kR + r) * B::kLdP + grp * kGroup + i] = aQ[i];
   }
   __syncthreads();
-  if (tid < 2 * kFrames * B::kSplit) {  // whole warps
-    constexpr int kPer = kR / B::kSplit;
-    const int out = tid / B::kSplit;
-    const int part = tid % B::kSplit;
-    const int comp = out >= kFrames;
-    const int f = out - comp * kFrames;
-    const float* p = s_p + (comp * kR + part * kPer) * B::kLdP + f;
+  for (int idx = tid; idx < 2 * kFrames; idx += B::kThreads) {
+    const int comp = idx >= kFrames;
+    const int f = idx - comp * kFrames;
+    if (m0 + f >= n_frames) continue;
+    const float* p = s_p + comp * kR * B::kLdP + f;
     float y = 0.0f;
-#pragma unroll
-    for (int rr = 0; rr < kPer; ++rr) y += p[rr * B::kLdP];
-#pragma unroll
-    for (int o = 1; o < B::kSplit; o <<= 1) {
-      y += __shfl_xor_sync(0xffffffffu, y, o);
-    }
-    if (part == 0 && m0 + f < n_frames) {
-      (comp ? yQ : yI)[c * out_stride + m0 + f] = y;
-    }
+#pragma unroll 16
+    for (int rr = 0; rr < kR; ++rr) y += p[rr * B::kLdP];
+    (comp ? yQ : yI)[c * out_stride + m0 + f] = y;
   }
 }
 

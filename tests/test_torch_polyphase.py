@@ -198,23 +198,15 @@ def _direct_blocks() -> dict[str, tuple[int, int]]:
             for k in (1, 2)}
 
 
-def _direct_split(frames: int, group: int) -> int:
-    """polyphase.cu's threads per frame and plane in the cross-phase sum:
-    the most of 8, 4, 2, 1 that its R * frames / group threads hold."""
-    threads = R1 * frames // group
-    return next(k for k in (8, 4, 2, 1) if 2 * frames * k <= threads)
-
-
 def _direct_emulate(xI, xQ, filt, n, frames, group):
-    """polyphase.cu's walk in numpy float32. Per (row, tile of `frames`
+    """polyphase.cu's walk in numpy float32. Per (row, block of `frames`
     output frames): the slab of frames + tpp - 1 rows of R samples, rows
     past the input's needed end 0. Thread (r, grp) walks slab rows
     grp*group + j, j < group + tpp - 1, of its phase r, and row j feeds
     frame i = j - t of its group through tap block t, so each of its
     `group` partials per plane adds t rising (complex taps: the gr
-    product, then the gi one). Then k = _direct_split threads per frame
-    each add R / k phases' partials, r rising, and a butterfly adds their
-    k sums (lane ^ 1, then ^ 2, then ^ 4)."""
+    product, then the gi one). Then each frame adds the R phases'
+    partials, r rising."""
     R, tpp = filt.R, filt.tpp
     gr = filt.gr.reshape(tpp, R)                      # [t, r]
     gi = filt.gi.reshape(tpp, R)
@@ -241,23 +233,18 @@ def _direct_emulate(xI, xQ, filt, n, frames, group):
             if cplx:
                 aI[..., i, :] += -gi[t] * xq
                 aQ[..., i, :] += gi[t] * xi
-    k = _direct_split(frames, group)
-    ys = np.zeros((k, 2, C, nb * frames), np.float32)
+    y = np.zeros((2, C, nb * frames), np.float32)
     for p, a in enumerate((aI, aQ)):
-        a = a.reshape(C, nb * frames, k, R // k)
-        for rr in range(R // k):
-            ys[:, p] += np.moveaxis(a[..., rr], -1, 0)
-    o = 1
-    while o < k:
-        ys = ys + ys[np.arange(k) ^ o]
-        o *= 2
-    return ys[0, :, :, :n]
+        a = a.reshape(C, nb * frames, R)
+        for r in range(R):
+            y[p] += a[..., r]
+    return y[:, :, :n]
 
 
 @pytest.mark.parametrize("stage", ["STAGE1", "STAGE2"])
 def test_direct_walk_matches_plain_and_jax(stage):
-    """polyphase.cu's tile walk at its own tile shape, float32 C=2, n
-    crossing two tile edges and ending in a ragged tile: within 1e-4 of
+    """polyphase.cu's block walk at its own block shape, float32 C=2, n
+    crossing two block edges and ending in a ragged block: within 1e-4 of
     the output scale of the plain version and of the JAX package's XLA
     path (stage 2 on N(0,30) rows, its tolerance in test_stage2_matches_xla);
     for stage 1 on N(0,1) rows also within 1e-4 of the XLA path and the
