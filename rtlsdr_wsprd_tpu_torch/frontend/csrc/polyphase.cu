@@ -32,7 +32,7 @@
 //    (kFrames + tpp - 1) x R samples of each plane, into shared memory
 //    once: 16-byte cp.async copies where both planes' rows start 16-byte
 //    aligned (the main path's do: torch.cat output, row stride 80 n + 2320
-//    floats), one float a thread otherwise. Only the tpp - 1 halo rows are
+//    floats), four float loads otherwise. Only the tpp - 1 halo rows are
 //    read again, by the next block, mostly from L2.
 // 2. Loads set the pace (2 global and 2 shared loads per 4 FMAs). Here
 //    thread (r, grp) owns phase r and a group of kGroup consecutive frames.
@@ -50,11 +50,11 @@
 //    (over the slab) and one thread per frame and plane adds them, r = 0 to
 //    R - 1: R adds a frame, against tpp R FMAs.
 // 5. 128-frame blocks left small calls on a few SMs. Both instantiations
-//    take 32 frames a block (8 a thread in stage 1, 16 in stage 2), the
-//    fastest of six shapes each over the front end's calls (PERF.md keeps
-//    the timings): C = 8 x 99 stage-2 frames launch 32 blocks and
-//    C = 1 x 3,750 launch 118, at the price of re-reading a halo of
-//    (tpp - 1) / 32 of the slab from L2.
+//    take 32 frames a block, 8 a thread (320 threads), the fastest of six
+//    shapes each over the front end's calls (PERF.md keeps the timings):
+//    C = 8 x 99 stage-2 frames launch 32 blocks and C = 1 x 3,750 launch
+//    118, at the price of re-reading a halo of (tpp - 1) / 32 of the slab
+//    from L2.
 // Ragged edge: slab rows past the row's last needed input row are zero,
 // and frames past n are not written.
 //
@@ -83,7 +83,7 @@ constexpr int kStage1Frames = 32;
 constexpr int kStage1Group = 8;
 constexpr int kStage2Tpp = 30;
 constexpr int kStage2Frames = 32;
-constexpr int kStage2Group = 16;
+constexpr int kStage2Group = 8;
 
 template <int kTpp, bool kComplex, int kFrames, int kGroup>
 struct Block {
@@ -126,30 +126,36 @@ polyphase_kernel(const float* __restrict__ xI, const float* __restrict__ xQ,
   const float* pQ = xQ + c * in_stride + m0 * kR;
 
   // 1. the slab of both planes, once; element (s, r) of a plane at
-  // s R + r + kPad (s / kGroup), rows past rows_valid zero
-  if (vec) {
-    constexpr int kChunks = B::kRows * kR / 4;  // 16-byte chunks a plane
-    for (int q = tid; q < 2 * kChunks; q += B::kThreads) {
-      const int plane = q >= kChunks;
-      const int e = 4 * (q - plane * kChunks);
-      const int s = e / kR;
-      float* dst = s_slab + plane * B::kPlane + e + kPad * (s / kGroup);
-      if (s < rows_valid) {
-        cp_async16(dst, (plane ? pQ : pI) + e);
-      } else {
-        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+  // s R + r + kPad (s / kGroup), rows past rows_valid zero. A slab row is
+  // kCols 16-byte chunks (both planes): thread tid copies chunk tid % kCols
+  // of rows tid / kCols + k kRowStep.
+  {
+    constexpr int kCols = 2 * kR / 4;
+    constexpr int kRowStep = B::kThreads / kCols;
+    static_assert(B::kThreads % kCols == 0, "whole slab rows per pass");
+    const int cc = tid % kCols;
+    const int plane = cc >= kCols / 2;
+    const int col = 4 * (cc - plane * (kCols / 2));
+    const int s0 = tid / kCols;
+    const float* src = (plane ? pQ : pI) + s0 * kR + col;
+    float* dst = s_slab + plane * B::kPlane + col;
+#pragma unroll
+    for (int k = 0; k < (B::kRows + kRowStep - 1) / kRowStep; ++k) {
+      const int s = s0 + k * kRowStep;
+      if (s < B::kRows) {
+        float* d = dst + s * kR + kPad * (s / kGroup);
+        const float* g = src + k * kRowStep * kR;
+        if (s >= rows_valid) {
+          *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+        } else if (vec) {
+          cp_async16(d, g);
+        } else {
+          *reinterpret_cast<float4*>(d) = make_float4(g[0], g[1], g[2], g[3]);
+        }
       }
     }
     asm volatile("cp.async.commit_group;\n" ::);
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  } else {
-    for (int e = tid; e < B::kRows * kR; e += B::kThreads) {
-      const int s = e / kR;
-      const int at = e + kPad * (s / kGroup);
-      const bool in = s < rows_valid;
-      s_slab[at] = in ? pI[e] : 0.0f;
-      s_slab[B::kPlane + at] = in ? pQ[e] : 0.0f;
-    }
   }
   __syncthreads();
 
