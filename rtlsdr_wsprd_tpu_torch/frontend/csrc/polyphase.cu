@@ -32,7 +32,7 @@
 //    (kFrames + tpp - 1) x R samples of each plane, into shared memory
 //    once: 16-byte cp.async copies where both planes' rows start 16-byte
 //    aligned (the main path's do: torch.cat output, row stride 80 n + 2320
-//    floats), four float loads otherwise. Only the tpp - 1 halo rows are
+//    floats), 4-byte ones otherwise. Only the tpp - 1 halo rows are
 //    read again, by the next block, mostly from L2.
 // 2. Loads set the pace (2 global and 2 shared loads per 4 FMAs). Here
 //    thread (r, grp) owns phase r and a group of kGroup consecutive frames.
@@ -105,6 +105,12 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
                "l"(src));
 }
 
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
 template <int kTpp, bool kComplex, int kFrames, int kGroup>
 __global__ void __launch_bounds__(
     (Block<kTpp, kComplex, kFrames, kGroup>::kThreads))
@@ -150,7 +156,8 @@ polyphase_kernel(const float* __restrict__ xI, const float* __restrict__ xQ,
         } else if (vec) {
           cp_async16(d, g);
         } else {
-          *reinterpret_cast<float4*>(d) = make_float4(g[0], g[1], g[2], g[3]);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) cp_async4(d + u, g + u);
         }
       }
     }
