@@ -87,9 +87,7 @@ constexpr int kStage2Group = 8;
 
 template <int kTpp, bool kComplex, int kFrames, int kGroup>
 struct Block {
-  static_assert(kFrames % kGroup == 0 && kFrames % 32 == 0 &&
-                    (kFrames / kGroup) % 4 == 0,
-                "block shape: each half of the groups whole warps");
+  static_assert(kFrames % kGroup == 0 && kFrames % 32 == 0, "block shape");
   static constexpr int kThreads = kR * (kFrames / kGroup);
   static_assert(kThreads <= 1024, "too many threads");
   static constexpr int kRows = kFrames + kTpp - 1;  // slab rows
@@ -133,30 +131,26 @@ polyphase_kernel(const float* __restrict__ xI, const float* __restrict__ xQ,
   const float* pI = xI + c * in_stride + m0 * kR;
   const float* pQ = xQ + c * in_stride + m0 * kR;
 
-  const int r = tid % kR;
-  const int grp = tid / kR;
-
   // 1. the slab of both planes, once; element (s, r) of a plane at
   // s R + r + kPad (s / kGroup), rows past rows_valid zero. A slab row is
-  // kCols 16-byte chunks (both planes). It comes in two parts: rows
-  // [0, kRowsLo), all that the lower half of the groups read, copied by
-  // every thread; then the rest, copied by the upper half's threads while
-  // the lower half starts its FMAs.
+  // kCols 16-byte chunks (both planes): thread tid copies chunk tid % kCols
+  // of rows tid / kCols + k kRowStep.
   {
     constexpr int kCols = 2 * kR / 4;
-    constexpr int kHalf = B::kThreads / 2;  // threads of the lower groups
-    constexpr int kRowsLo = kFrames / 2 + kTpp - 1;
-    const bool upper = tid >= kHalf;
-    // copy rows [lo, hi) with n threads, this one being thread t of them
-    auto copy_rows = [&](int lo, int hi, int n, int t) {
-      const int cc = t % kCols;
-      const int plane = cc >= kCols / 2;
-      const int col = 4 * (cc - plane * (kCols / 2));
-      const float* src = (plane ? pQ : pI) + col;
-      float* dst = s_slab + plane * B::kPlane + col;
-      for (int s = lo + t / kCols; s < hi; s += n / kCols) {
+    constexpr int kRowStep = B::kThreads / kCols;
+    static_assert(B::kThreads % kCols == 0, "whole slab rows per pass");
+    const int cc = tid % kCols;
+    const int plane = cc >= kCols / 2;
+    const int col = 4 * (cc - plane * (kCols / 2));
+    const int s0 = tid / kCols;
+    const float* src = (plane ? pQ : pI) + s0 * kR + col;
+    float* dst = s_slab + plane * B::kPlane + col;
+#pragma unroll
+    for (int k = 0; k < (B::kRows + kRowStep - 1) / kRowStep; ++k) {
+      const int s = s0 + k * kRowStep;
+      if (s < B::kRows) {
         float* d = dst + s * kR + kPad * (s / kGroup);
-        const float* g = src + s * kR;
+        const float* g = src + k * kRowStep * kR;
         if (s >= rows_valid) {
           *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
         } else if (vec) {
@@ -166,24 +160,16 @@ polyphase_kernel(const float* __restrict__ xI, const float* __restrict__ xQ,
           for (int u = 0; u < 4; ++u) cp_async4(d + u, g + u);
         }
       }
-      asm volatile("cp.async.commit_group;\n" ::);
-    };
-    copy_rows(0, kRowsLo, B::kThreads, tid);
-    if (upper) {
-      copy_rows(kRowsLo, B::kRows, kHalf, tid - kHalf);
-      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     }
-    __syncthreads();  // rows [0, kRowsLo) have landed
-    if (upper) {
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-      asm volatile("bar.sync 1, %0;\n" ::"n"(kHalf) : "memory");
-    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   }
+  __syncthreads();
 
   // 2. thread (r, grp): phase r's taps in registers, kGroup frames of
   // partials per plane
+  const int r = tid % kR;
+  const int grp = tid / kR;
   float tr[kTpp];
   float ti[kComplex ? kTpp : 1];
 #pragma unroll

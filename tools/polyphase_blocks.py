@@ -49,10 +49,11 @@ from rtlsdr_wsprd_tpu_torch.frontend.decimate import (  # noqa: E402
     STAGE2,
 )
 
-# (frames per tile, frames per thread): at most 1024 threads a block, a
-# multiple of 4 frame groups a tile
-CANDIDATES = dict.fromkeys(("stage1", "stage2"), [
-    (32, 4), (32, 8), (64, 8), (64, 16), (128, 16), (128, 32)])
+# (frames per tile, frames per thread); at most 1024 threads a block
+CANDIDATES = {
+    "stage1": [(32, 4), (32, 8), (64, 8), (64, 16), (128, 16), (128, 32)],
+    "stage2": [(32, 8), (32, 16), (64, 8), (64, 16), (128, 16), (128, 32)],
+}
 # (C, frames): the front end's calls (8 lanes, and one lane)
 SHAPES = {
     "stage1": [(8, 8000), (1, 300_000)],
@@ -62,13 +63,12 @@ FILTERS = {"stage1": STAGE1, "stage2": STAGE2}
 SOURCE = (polyphase._CSRC / "polyphase.cu").read_text()
 
 # part left out -> (the source from this line ..., to this one, in its place)
-LOADS = ("  // 1. the slab of both planes", "  // 2. thread (r, grp)")
+LOADS = ("  // 1. the slab of both planes", "  __syncthreads();\n\n  // 2.")
 FMAS = ("#pragma unroll\n  for (int j = 0;", "  __syncthreads();  // every")
 SUM = ("  // 3. cross-phase sum", "}\n\ntemplate <int kTpp, bool kComplex")
 PARTS = {
     "as it is": None,
-    "no global loads": (*LOADS, (
-        "  if (tid == 0) s_slab[0] = 0.0f;\n  __syncthreads();\n\n")),
+    "no global loads": (*LOADS, "  if (tid == 0) s_slab[0] = 0.0f;\n"),
     "no FMAs": (*FMAS, "  aI[0] = sI[0];\n  aQ[0] = sQ[0];\n"),
     "no phase sum": (*SUM, (
         "  if (r == 0 && m0 + grp * kGroup < n_frames) {\n"
