@@ -39,7 +39,8 @@
 //    Its tpp taps of phase r sit in registers; it walks the kGroup + tpp - 1
 //    slab samples of its phase in order, and each sample feeds up to tpp
 //    FMAs into a register tile of kGroup outputs per plane: one shared load
-//    feeds about ten FMAs. Neighbouring lanes take neighbouring phases, so
+//    feeds 6.5 FMAs in stage 2 and 8.5 in stage 1 (kGroup = 8), where it
+//    fed one. Neighbouring lanes take neighbouring phases, so
 //    a warp reads neighbouring words. Every kGroup slab rows are followed by
 //    16 floats of padding: a warp that spans two frame groups (R = 80 is not
 //    a multiple of 32) then reads two disjoint half-bank sets.
@@ -58,11 +59,13 @@
 // Ragged edge: slab rows past the row's last needed input row are zero,
 // and frames past n are not written.
 //
-// Two variants were timed and were no faster: a persistent walk in which
-// each block copies its next tile's slab while it computes the current
-// one, and a cross-phase sum split over up to 8 lanes (PERF.md). What
-// remains is one slab load, then the FMAs, then the sum, per block; other
-// blocks on the SM overlap them.
+// Variants timed on the card and found no faster (PERF.md): a persistent
+// walk in which each block copies its next tile's slab while it computes
+// the current one; the slab copied in two parts, half the groups starting
+// their FMAs on the first; the cross-phase sum split over lanes, or summed
+// by shuffles within half-warps. So a block loads its slab, then runs its
+// FMAs, then the sum; on the card the three phases' times add up
+// (tools/polyphase_blocks.py times each one left out).
 //
 // Plain C interface, loaded with ctypes. The function launches on the
 // caller's stream, does not synchronise and allocates nothing; it returns

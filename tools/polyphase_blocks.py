@@ -19,9 +19,9 @@ registers), run through the port's own wrapper (``polyphase_decimate``)
 at the front end's shapes of its stage and timed with chip_smoke.py's
 device timer, twice, the copies in forward then reverse order. Each
 candidate shape and the unchanged source are held against the plain
-version (max |diff| <= 1e-3). Prints one line per copy and shape, the
-card's name and power limit, and writes everything to
-chiprun_out/polyphase_blocks.json. Needs a card; imports nothing of JAX.
+version (max |diff| <= 1e-3). Prints one line per copy and shape, then
+every number as one JSON line, then the card's name and power limit.
+Needs a card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -204,11 +204,7 @@ def main() -> None:
             print(f"[parts] {stage} C={C} x {n}: " + "; ".join(
                 f"{p} {sum(times[p]) / 2:.4f} ms" for p in parts),
                 flush=True)
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "polyphase_blocks.json"),
-              "w") as fh:
-        json.dump({"card": card, "device": name, "rows": results}, fh,
-                  indent=1)
+    print(json.dumps({"card": card, "device": name, "rows": results}))
     print(card)
 
 
