@@ -7,20 +7,20 @@ Phases, in order; any failure exits non-zero before the last line:
 1. env      torch/CUDA versions, the card's name and power limit, TF32 off.
 2. build    the two polyphase CUDA kernels (nvcc: polyphase_tc.cu, the
             tensor-core stage-1 kernel for uint8 input, and polyphase.cu,
-            the direct form for float32 input) and the host Fano library
+            the FP32-core kernel for float32 input) and the host Fano library
             (g++), built at the same time from this checkout.
 3. frontend the main path: a 120 s synthetic raw 2.4 Msps uint8 capture
             streamed in 10 s chunks through BatchedStreamingDecimator (8
             lanes, each fed the same capture), lane 0's window decoded by
             decode_channels; each kernel's launch count is read around
             this phase (every uint8 stage-1 call on polyphase_tc, every
-            stage-2 call on the direct form), and the shape of every
+            stage-2 call on polyphase.cu), and the shape of every
             launch is recorded.
    single   the same capture through the single-channel
             StreamingDecimator, which centres the bytes on the host, so
-            both of its stages run float32 on the direct form: its launch
-            counts are read around this phase (every call on the direct
-            form, none on polyphase_tc), the shape of every launch is
+            both of its stages run float32 on polyphase.cu: its launch
+            counts are read around this phase (every call on
+            polyphase.cu, none on polyphase_tc), the shape of every launch is
             recorded, and its output must equal the batched lane 0
             within 2e-4 of the output scale.
 4. kernel   each kernel against the plain PyTorch version on the card at
@@ -412,7 +412,7 @@ def phase_frontend(dev, chunks, C: int = 8):
     if abs(s.dt) >= 0.3 or abs((s.freq * 1e6 - 1500.0) - 30.0) >= 0.5:
         fail(f"raw capture spot off: dt {s.dt}, freq {s.freq}")
     # every uint8 stage-1 call on the tensor-core kernel, every stage-2
-    # call on the direct form, and no other call
+    # call on polyphase.cu, and no other call
     want = {"tc": sum(k for key, k in shapes.items()
                       if key[:2] == ("stage1", "uint8")),
             "direct": sum(k for key, k in shapes.items()
@@ -430,7 +430,7 @@ def phase_frontend(dev, chunks, C: int = 8):
 def phase_single(dev, chunks, refI, refQ):
     """The single-channel front end: the same capture through
     StreamingDecimator, which centres the bytes on the host, so both of
-    its stages are float32 calls on the direct form. Its output must
+    its stages are float32 calls on polyphase.cu. Its output must
     equal the batched front end's lane 0 (refI, refQ) within 2e-4 of the
     output scale. Returns its launches and launches by shape."""
     from rtlsdr_wsprd_tpu_torch.frontend.decimate import StreamingDecimator
@@ -456,7 +456,7 @@ def phase_single(dev, chunks, refI, refQ):
         f"{2e-4 * scale:.3g}); polyphase launches by kernel {launches}")
     if not err <= 2e-4 * scale:
         fail(f"single-lane output differs from batched lane 0 by {err}")
-    # every call, both stages, float32 on the direct form
+    # every call, both stages, float32 on polyphase.cu
     want = {"tc": 0, "direct": sum(shapes.values())}
     if (launches != want or not want["direct"]
             or any(k[1] != "float32" for k in shapes)):

@@ -7,8 +7,8 @@ framework-free modules (constants, codecs, filter design, synthesis).
 
 * ``frontend`` — the 2.4 Msps -> 375 sps two-stage polyphase decimator
                  on two hand-written CUDA kernels: uint8 stage 1 on the
-                 tensor cores (``frontend/csrc/polyphase_tc.cu``), stage
-                 2 and float32 input in direct form
+                 tensor cores (``frontend/csrc/polyphase_tc.cu``), float32
+                 stage 1 and stage 2 on the FP32 cores
                  (``frontend/csrc/polyphase.cu``).
 * ``ops``      — STFT, candidate search, coarse grid, lane correlators
                  and coherent subtraction, as PyTorch tensor code.

@@ -11,10 +11,11 @@ fallback.
   front end. It computes the partial product below as a TF32 GEMM on
   the tensor cores, with the taps split into TF32 hi + lo parts on the
   host (``tf32_split``) so the result keeps float32 accuracy.
-- ``csrc/polyphase.cu``, the direct form: float32 planes through the
-  stage-1 filter or a real-tap stage-2 filter (``DIRECT_SHAPES``). A
-  block stages its input slab in shared memory once; each thread holds
-  one phase's taps in registers and a tile of frames.
+- ``csrc/polyphase.cu``, the float32 kernel (route ``"direct"``):
+  float32 planes through the stage-1 filter or a real-tap stage-2
+  filter (``DIRECT_SHAPES``). A block stages its input slab in shared
+  memory once; each thread holds one phase's taps in registers and a
+  tile of frames.
 
 Both replace ``rtlsdr_wsprd_tpu/frontend/pallas_decimate.py``
 ``decimate_stage1_pallas``; each source holds its own note on what
@@ -55,7 +56,7 @@ _KERNELS = {
 }
 # the tensor-core kernel's filter (T, R)
 TC_SHAPE = (640, 80)
-# the direct form's two instantiations: filter (T, R) -> whether it takes
+# polyphase.cu's two instantiations: filter (T, R) -> whether it takes
 # complex taps (stage 1) or real taps only (stage 2)
 DIRECT_SHAPES = {(640, 80): True, (2400, 80): False}
 
@@ -142,7 +143,7 @@ def tc_fragments(htop: np.ndarray, hbot: np.ndarray) -> np.ndarray:
 
 
 class FilterTensors(NamedTuple):
-    gr: torch.Tensor       # conv-ordered taps: the direct-form kernel's
+    gr: torch.Tensor       # conv-ordered taps: polyphase.cu's
     gi: torch.Tensor
     htop: torch.Tensor     # partial-product matrices: the plain version's
     hbot: torch.Tensor
@@ -153,7 +154,7 @@ class FilterTensors(NamedTuple):
 
 class PolyphaseFilter:
     """One decimating filter: conv-ordered complex taps ``g`` (T,) and
-    the decimation R. Holds the direct-form kernel's taps (gr, gi) and
+    the decimation R. Holds polyphase.cu's taps (gr, gi) and
     the partial-product matrices (Htop, Hbot) as numpy tables; for a
     filter the tensor-core kernel takes, its fragment table is derived
     from the live Htop/Hbot on its way to the device."""
@@ -186,7 +187,7 @@ class PolyphaseFilter:
 
     @property
     def direct_capable(self) -> bool:
-        """Whether the direct form takes this filter: a shape of
+        """Whether polyphase.cu takes this filter: a shape of
         DIRECT_SHAPES, with real taps where that instantiation needs
         them."""
         cplx = DIRECT_SHAPES.get((self.T, self.R))
@@ -225,7 +226,7 @@ def _route(device_type: str, dtype: torch.dtype,
            filt: PolyphaseFilter) -> str:
     """The kernel a CUDA call takes: ``"tc"`` for uint8 planes through a
     filter the tensor-core kernel takes (stage 1), ``"direct"`` for
-    float32 planes through a filter the direct form takes; any other
+    float32 planes through a filter polyphase.cu takes; any other
     call raises."""
     if device_type != "cuda":
         raise ValueError(f"no kernel for device type {device_type!r}")

@@ -149,7 +149,7 @@ def test_tc_arithmetic_matches_plain_and_xla(n, tile_rows):
 ])
 def test_route_picks_the_kernel(dtype, stage, route):
     """uint8 stage-1 calls on CUDA go to the tensor-core kernel, float32
-    calls to the direct form; no card or launch needed."""
+    calls to polyphase.cu; no card or launch needed."""
     assert _route("cuda", dtype, getattr(pdec, stage)) == route
 
 
@@ -170,7 +170,7 @@ _R64 = PolyphaseFilter(np.hanning(640) * (1 + 1j), 64)
 ], ids=["stage2", "real-taps-640", "cpu"])
 def test_route_refuses_what_no_kernel_takes(device_type, filt):
     """uint8 planes through a filter other than stage 1 have no kernel
-    (the direct form takes float32 only), and no kernel runs off CUDA:
+    (polyphase.cu takes float32 only), and no kernel runs off CUDA:
     _route raises rather than pick one."""
     with pytest.raises(ValueError):
         _route(device_type, torch.uint8, filt)
@@ -246,10 +246,10 @@ def test_direct_walk_matches_plain_and_jax(stage):
     """polyphase.cu's block walk at its own block shape, float32 C=2, n
     crossing two block edges and ending in a ragged block: within 1e-4 of
     the output scale of the plain version and of the JAX package's XLA
-    path (stage 2 on N(0,30) rows, its tolerance in test_stage2_matches_xla);
-    for stage 1 on N(0,1) rows also within 1e-4 of the XLA path and the
-    Pallas kernel in interpret mode, as test_stage1_float_matches_xla_and_pallas
-    holds them."""
+    path (stage 2 on N(0,30) rows, its tolerance in
+    test_stage2_matches_xla); for stage 1 on N(0,1) rows also within 1e-4
+    of the XLA path and the Pallas kernel in interpret mode, as
+    test_stage1_float_matches_xla_and_pallas holds them."""
     frames, group = _direct_blocks()[stage]
     filt = getattr(pdec, stage)
     n = 2 * frames + frames // 2 + 3
