@@ -11,10 +11,14 @@ framework-free modules (constants, codecs, filter design, synthesis).
                  stage 1 and stage 2 on the FP32 cores
                  (``frontend/csrc/polyphase.cu``).
 * ``ops``      — STFT, candidate search, coarse grid, lane correlators
-                 and coherent subtraction, as PyTorch tensor code.
-* ``parallel`` — the staged single-device multi-channel decode.
+                 and coherent subtraction, as PyTorch tensor code; the
+                 batched Fano decoder on a hand-written CUDA kernel
+                 (``ops/csrc/fano.cu``), the hybrid device/host FEC
+                 split and its calibration.
+* ``parallel`` — the staged single-device multi-channel decode and its
+                 pipelined stream decode.
 * ``models``   — ``Spot`` and the ``WsprDecoder`` facade.
-* ``native``   — ctypes binding to the host Fano decoder.
+* ``native``   — ctypes binding to the host Fano decoder and encoder.
 * ``convert``  — the JAX package's constant tables as the port's.
 
 Every entry point takes ``device=None``, meaning the CUDA card, and

@@ -20,6 +20,16 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 REPO_ROOT = Path(__file__).resolve().parent.parent
 
 
+def nvcc_path() -> str:
+    """The CUDA compiler: ``nvcc`` on the PATH, else under ``CUDA_HOME``
+    (default /usr/local/cuda)."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(home, "bin", "nvcc")
+
+
 def build_shared(name: str, compiler: str, sources: list[Path],
                  flags: list[str], timeout: float = 600.0) -> Path:
     """Compile ``sources`` with ``compiler`` into ``_build/lib<name>-<hash>.so``

@@ -21,9 +21,9 @@ import numpy as np
 from .device import clear_consts
 from .frontend import decimate as _decimate
 from .ops import coarse as _coarse
+from .ops import fano as _fano
 from .ops import stft as _stft
 from .ops import sync as _sync
-from .parallel import multichannel as _mc
 from .utils.hashtable import WsprHashTable
 
 
@@ -55,7 +55,7 @@ def _live_tables() -> dict[str, np.ndarray]:
         # ops/coarse.py _weights()
         "ops.coarse.weights": _coarse.W,
         # ops/fano.py build_mettab()
-        "ops.fano.mettab": _mc._METTAB,
+        "ops.fano.mettab": _fano.METTAB,
     }
     # ops/sync.py _offset_tone_matrix(offsets), one pair per offset set
     for name, offs in tone_offsets().items():

@@ -30,15 +30,13 @@ output, and frame m is the sum of tpp shifted diagonals.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
 from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..buildlib import build_shared
+from ..buildlib import build_shared, nvcc_path
 from ..device import const, derived_const
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -63,14 +61,6 @@ DIRECT_SHAPES = {(640, 80): True, (2400, 80): False}
 _libs: dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(home, "bin", "nvcc")
-
-
 def build_kernel(route: str) -> str:
     """Build (if needed) and load one kernel's library, ``"direct"`` or
     ``"tc"``; returns its path."""
@@ -81,7 +71,7 @@ def _load_kernel(route: str):
     lib = _libs.get(route)
     if lib is None:
         name, src, fn, argtypes = _KERNELS[route]
-        lib = ctypes.CDLL(str(build_shared(name, _nvcc(), [src], NVCC_FLAGS)))
+        lib = ctypes.CDLL(str(build_shared(name, nvcc_path(), [src], NVCC_FLAGS)))
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = _ci
         _libs[route] = lib

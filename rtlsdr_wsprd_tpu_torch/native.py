@@ -1,10 +1,10 @@
 """The port's ctypes binding to the native host runtime.
 
-Binds two pieces of ``native/hostdsp.cpp`` (a file of the repository,
+Binds three pieces of ``native/hostdsp.cpp`` (a file of the repository,
 outside either Python package): the sequential host Fano decoder
 ``wspr_fano_decode`` (the reference's wsprd/fano.c semantics, bit for
-bit) and the float32 -> int8/int16 transfer quantizers
-``f32_quantize_i8/i16``. The source is compiled with ``g++`` into the
+bit), the convolutional encoder ``wspr_conv_encode`` and the float32 ->
+int8/int16 transfer quantizers ``f32_quantize_i8/i16``. The source is compiled with ``g++`` into the
 port's gitignored build directory at first use (buildlib.py). Without
 ``g++`` every call raises: the FEC has no pure-Python stand-in.
 """
@@ -52,6 +52,8 @@ def _load():
             ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_int32),
             ctypes.POINTER(ctypes.c_int32)]
         lib.wspr_fano_decode.restype = ctypes.c_int
+        lib.wspr_conv_encode.argtypes = [u8p, u8p, ctypes.c_int]
+        lib.wspr_conv_encode.restype = None
         lib.f32_quantize_i8.argtypes = [
             f32p, ctypes.c_uint64, ctypes.c_float,
             np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")]
@@ -83,6 +85,49 @@ def fano_decode(symbols: np.ndarray, mettab: np.ndarray,
                               ctypes.byref(metric), ctypes.byref(maxnp))
     return (bool(ok), data, int(cycles.value), int(metric.value),
             int(maxnp.value))
+
+
+def fano_decode_many(symbols: np.ndarray, mettab: np.ndarray,
+                     delta: int = 60, maxcycles: int = 10000,
+                     threads: int = 16):
+    """``fano_decode`` over a batch, on up to ``threads`` host threads
+    (the ctypes call releases the GIL). symbols: uint8[N, 162]
+    deinterleaved. Returns (success bool[N], data uint8[N, 11], cycles
+    uint32[N], metric int32[N], maxnp int32[N])."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    symbols = np.ascontiguousarray(symbols, np.uint8)
+    n = symbols.shape[0]
+    success = np.zeros(n, bool)
+    data = np.zeros((n, 11), np.uint8)
+    cycles = np.zeros(n, np.uint32)
+    metric = np.zeros(n, np.int32)
+    maxnp = np.zeros(n, np.int32)
+    mettab = np.ascontiguousarray(mettab, np.int32)
+
+    def run(k):
+        (success[k], data[k], cycles[k], metric[k],
+         maxnp[k]) = fano_decode(symbols[k], mettab, delta, maxcycles)
+
+    if n <= 1 or threads <= 1:
+        for k in range(n):
+            run(k)
+    else:
+        with ThreadPoolExecutor(max_workers=min(threads, n)) as ex:
+            list(ex.map(run, range(n)))
+    return success, data, cycles, metric, maxnp
+
+
+def conv_encode(data: np.ndarray, nsym: int = 162) -> np.ndarray:
+    """The K=32 r=1/2 convolutional encoder: 11 bytes MSB first ->
+    ``nsym`` 2-bit symbols (POLY1 parity in bit 1, POLY2 in bit 0)."""
+    lib = _load()
+    data = np.ascontiguousarray(data, np.uint8)
+    if data.shape != (11,):
+        raise ValueError(f"data must be 11 bytes, got {data.shape}")
+    out = np.zeros(nsym, np.uint8)
+    lib.wspr_conv_encode(data, out, nsym)
+    return out
 
 
 def quantize_into(x: np.ndarray, out: np.ndarray, scale: float) -> None:

@@ -231,8 +231,8 @@ def test_prepare_windows_device_matches_host_feed(wins):
 
     assert key(got) == key(ref)
     assert sum(len(ch) for ch in got) == 3
-    with pytest.raises(ValueError):
-        pmc.decode_channels(wi, wq, device=CPU, fec="hybrid")
+    with pytest.raises(ValueError, match="fec="):
+        pmc.decode_channels(wi, wq, device=CPU, fec="device")
 
 
 @pytest.mark.slow
@@ -322,13 +322,16 @@ def test_entry_points_default_to_cuda():
 
 def test_import_leaves_jax_out():
     """In a fresh interpreter, importing every module of the port (and
-    chip_smoke.py) loads neither jax nor the JAX package."""
+    chip_smoke.py) loads neither jax nor the JAX package; the walk
+    reaches the FEC modules (ops.fano, ops.fano_hybrid, ops.calibrate)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import rtlsdr_wsprd_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "new = ('ops.fano', 'ops.fano_hybrid', 'ops.calibrate')\n"
+        "assert all(p.__name__ + '.' + m in sys.modules for m in new)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'rtlsdr_wsprd_tpu'))\n"
         "print(len(sys.modules), bad)\n"
@@ -355,3 +358,210 @@ def test_sources_import_no_jax():
             for n in names:
                 assert n.split(".")[0] not in (
                     "jax", "jaxlib", "rtlsdr_wsprd_tpu"), f"{f}: {n}"
+
+
+def _spot_fields(spots):
+    return [[(s.message, s.jitter, s.cycles, s.freq, s.snr, s.dt, s.sync)
+             for s in ch] for ch in spots]
+
+
+def test_hybrid_decode_matches_host_and_jax(wins, jax_host_fec,
+                                            monkeypatch):
+    """With RTLSDR_WSPRD_TPU_FEC=hybrid and RTLSDR_WSPRD_TPU_FEC_BUDGET=16,
+    fec='auto' resolves to the hybrid FEC: every attempt goes through
+    the device Fano at budget 16 (the plain version on the CPU), the
+    stragglers through the native decoder. The spots equal the port's
+    host FEC in every field and the JAX package's host FEC within
+    torch_parity's tolerances."""
+    from rtlsdr_wsprd_tpu_torch.ops import calibrate
+
+    wi, wq = wins
+    host = pmc.decode_channels(wi, wq, DecoderOptions(**QUICK),
+                               device_batch=3, device=CPU, fec="host")
+    calls = []
+    real = pmc._fano_rounds
+
+    def spy(gate, deint, delta, dev_maxcycles, full_maxcycles, device):
+        calls.append((int(gate.sum()), dev_maxcycles, full_maxcycles))
+        return real(gate, deint, delta, dev_maxcycles, full_maxcycles,
+                    device)
+
+    monkeypatch.setattr(pmc, "_fano_rounds", spy)
+    monkeypatch.setenv("RTLSDR_WSPRD_TPU_FEC", "hybrid")
+    monkeypatch.setenv("RTLSDR_WSPRD_TPU_FEC_BUDGET", "16")
+    calibrate._CACHE.clear()
+    try:
+        hyb = pmc.decode_channels(wi, wq, DecoderOptions(**QUICK),
+                                  device_batch=3, device=CPU)
+    finally:
+        calibrate._CACHE.clear()
+    assert calls and all(c[1:] == (16, 10000) for c in calls)
+    assert sum(c[0] for c in calls) >= 3  # every decode went through it
+    assert _spot_fields(hyb) == _spot_fields(host)
+    ref = jmc.decode_channels(wi, wq, JOptions(**QUICK), device_batch=3,
+                              fec="host")
+    assert_spots_match(hyb, ref)
+    assert sum(len(ch) for ch in hyb) == 3
+
+
+def test_fano_rounds_hybrid_matches_host_rounds():
+    """The hybrid rounds on dense attempts (device budget 4, so most
+    attempts become stragglers; first-success skipping across one call)
+    return exactly the JAX package's host rounds: the same lanes,
+    jitters, bytes and cycles."""
+    J, G = 6, 5
+    rng = np.random.default_rng(31)
+    good = _hard("K1JT FN20 37")
+    noisy = np.clip(good.astype(int) + rng.normal(0, 60, 162), 0,
+                    255).astype(np.uint8)
+    deint = rng.integers(0, 256, (J, G, 162)).astype(np.uint8)
+    gate = rng.random((J, G)) < 0.6
+    deint[1, 0], gate[1, 0] = good, True
+    deint[4, 0], gate[4, 0] = noisy, True
+    deint[3, 2], gate[3, 2] = noisy, True
+    deint[:, 3], gate[:, 3] = good, True   # every jitter decodes
+    gate[:, 4] = False                     # a lane with no attempt
+    got = pmc._fano_rounds(gate, deint, 60, 4, 10000, torch.device(CPU))
+    ref = jmc._fano_rounds_host(gate, deint, 60, 10000)
+    assert got == ref
+    assert got[0][0] == 1 and got[3][0] == int(np.nonzero(gate[:, 3])[0][0])
+
+
+def test_pipelined_matches_sequential(wins):
+    """The 2-deep pipelined stream yields each batch's spots equal to
+    decode_channels on that batch, in order."""
+    wi, wq = wins
+    opts = DecoderOptions(**QUICK)
+    want = _spot_fields(pmc.decode_channels(wi, wq, opts, device_batch=3,
+                                            device=CPU))
+    out = list(pmc.decode_channels_pipelined(
+        [(wi, wq), (wi[:2], wq[:2]), (wi, wq)], opts, device_batch=3,
+        device=CPU))
+    assert [_spot_fields(o) for o in out] == [want, want[:2], want]
+
+
+def test_pipelined_accepts_prepared_handles(wins):
+    """prepare_windows() and prepare_windows_device() handles decode in
+    the stream exactly as the host-array feed does."""
+    wi, wq = wins
+    opts = DecoderOptions(**QUICK)
+    want = _spot_fields(pmc.decode_channels(wi, wq, opts, device_batch=3,
+                                            device=CPU))
+    h = pmc.prepare_windows(wi, wq, device_batch=3, device=CPU)
+    d = pmc.prepare_windows_device(*(a[:3].clone() for a in h.arrays),
+                                   device_batch=3)
+    out = list(pmc.decode_channels_pipelined(iter([h, d]), opts))
+    assert [_spot_fields(o) for o in out] == [want, want]
+    assert sum(len(ch) for ch in out[0]) == 3
+
+
+def test_strict_hash_order_serializes_batches(monkeypatch):
+    """strict_hash_order with usehashtable serializes the batches: batch
+    k+1's decode starts only after batch k's ended."""
+    import time
+
+    timeline = []
+
+    def fake_decode(i, q, options, ht, windows=None, fec="auto", **kw):
+        k = sum(1 for ev, _ in timeline if ev == "start")
+        timeline.append(("start", time.perf_counter()))
+        if k == 0:
+            time.sleep(0.25)  # make any overlap visible
+        timeline.append(("end", time.perf_counter()))
+        return [[] for _ in range(windows.B)]
+
+    monkeypatch.setattr(pmc, "decode_channels", fake_decode)
+    z = np.zeros((1, 45000), np.float32)
+    opts = DecoderOptions(quickmode=True, usehashtable=True)
+    out = list(pmc.decode_channels_pipelined(
+        iter([(z, z), (z, z)]), opts, pmc.WsprHashTable(), depth=2,
+        device_batch=1, device=CPU, strict_hash_order=True))
+    assert out == [[[]], [[]]]
+    starts = [t for ev, t in timeline if ev == "start"]
+    ends = [t for ev, t in timeline if ev == "end"]
+    assert len(starts) == 2 and starts[1] >= ends[0]
+
+
+def test_pipelined_on_error_isolates_poisoned_batch(monkeypatch):
+    """A batch whose decode raises is reported to on_error and yields
+    empty spot lists, and the stream goes on; without on_error the
+    exception propagates."""
+    real = pmc.decode_channels
+    calls = {"n": 0}
+
+    def flaky(*args, **kwargs):
+        calls["n"] += 1
+        if calls["n"] == 1:
+            raise RuntimeError("poisoned batch")
+        return real(*args, **kwargs)
+
+    rng = np.random.default_rng(5)
+    batch = (rng.normal(0, 0.1, (2, 45000)).astype(np.float32),
+             rng.normal(0, 0.1, (2, 45000)).astype(np.float32))
+    monkeypatch.setattr(pmc, "decode_channels", flaky)
+    errors = []
+    out = list(pmc.decode_channels_pipelined(
+        [batch, batch], DecoderOptions(**QUICK), device_batch=2,
+        device=CPU, on_error=errors.append))
+    assert len(out) == 2
+    assert out[0] == [[], []]
+    assert isinstance(out[1], list) and len(out[1]) == 2
+    assert len(errors) == 1 and "poisoned" in str(errors[0])
+    calls["n"] = 0
+    with pytest.raises(RuntimeError, match="poisoned"):
+        list(pmc.decode_channels_pipelined(
+            [batch], DecoderOptions(**QUICK), device_batch=2, device=CPU))
+
+
+@pytest.mark.slow
+def test_pipelined_type3_resolves_under_forced_race(monkeypatch):
+    """The hash-teaching guarantee holds by construction: the teacher
+    batch's decode is held until the type-3 batch has decoded (so its
+    spot assembles as '<...>'), with the full 2-deep overlap; yield-time
+    resolution still delivers '<PJ4/K1ABC>' with the reference's
+    fields."""
+    import threading
+
+    from rtlsdr_wsprd_tpu_torch.runtime.iqio import normalize_minus3db
+    from rtlsdr_wsprd_tpu_torch.runtime.synth import synth_window_at_snr
+    from rtlsdr_wsprd_tpu_torch.utils.hashtable import (
+        WsprHashTable as PTable,
+    )
+
+    def win(msg, seed):
+        i, q = synth_window_at_snr(msg, snr_db=8.0, f0=20.0, seed=seed)
+        i, q = normalize_minus3db(i, q)
+        return i[None], q[None]
+
+    batches = [win("PJ4/K1ABC 37", 41), win("<PJ4/K1ABC> FK52UD 37", 42)]
+    user_done = threading.Event()
+    lock = threading.Lock()
+    state = {"calls": 0, "raw_user_calls": None}
+    real = pmc.decode_channels
+
+    def racing(i, q, options, ht, **kw):
+        with lock:
+            k = state["calls"]
+            state["calls"] += 1
+        if k == 0:
+            # the teacher decodes (and teaches) only after the type-3
+            # batch finished decoding: the worst-case race
+            assert user_done.wait(timeout=600.0), "user batch stalled"
+            return real(i, q, options, ht, **kw)
+        res = real(i, q, options, ht, **kw)
+        state["raw_user_calls"] = {s.call for ch in res for s in ch}
+        user_done.set()
+        return res
+
+    monkeypatch.setattr(pmc, "decode_channels", racing)
+    opts = DecoderOptions(quickmode=True, usehashtable=True)
+    out = list(pmc.decode_channels_pipelined(
+        iter(batches), opts, PTable(), depth=2, device_batch=1,
+        device=CPU, strict_hash_order=False))
+    assert len(out) == 2
+    assert "<...>" in state["raw_user_calls"]
+    assert any(s.message == "PJ4/K1ABC 37" for s in out[0][0])
+    spot = next(s for s in out[1][0] if s.ihash >= 0)
+    assert spot.call == "<PJ4/K1ABC>"
+    assert spot.message == "<PJ4/K1ABC> FK52UD 37"
+    assert (spot.loc, spot.pwr) == ("FK52UD", "37")

@@ -42,7 +42,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from rtlsdr_wsprd_tpu_torch.buildlib import BUILD_DIR  # noqa: E402
+from rtlsdr_wsprd_tpu_torch.buildlib import BUILD_DIR, nvcc_path  # noqa: E402
 from rtlsdr_wsprd_tpu_torch.frontend import polyphase  # noqa: E402
 from rtlsdr_wsprd_tpu_torch.frontend.decimate import (  # noqa: E402
     STAGE1,
@@ -108,7 +108,7 @@ def build(label: str, src: str):
     stem = out / f"polyphase_{re.sub(r'\W+', '_', label)}"
     stem.with_suffix(".cu").write_text(src)
     proc = subprocess.run(
-        [polyphase._nvcc(), *polyphase.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+        [nvcc_path(), *polyphase.NVCC_FLAGS, "-Xptxas", "-v", "-o",
          str(stem.with_suffix(".so")), str(stem.with_suffix(".cu"))],
         capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
