@@ -32,9 +32,11 @@ Phases, in order; any failure exits non-zero before the last line:
             the device times of the kernel, the plain version, one torch
             conv1d call (a yardstick the port never calls) and the card's
             bound for the same work.
-5. fano     the FEC calibration (ops/calibrate.py), then the Fano
-            kernel on two 512-lane inputs: a synthetic mix (clean
-            encoded messages, noisy copies at sigma 20-80, random
+5. fano     the FEC calibration (ops/calibrate.py), its device_cycle_ms
+            beside the most that budget 256 allows (native timeout /
+            160), then the Fano kernel, on tensors placed on cuda:0
+            named explicitly, on two 512-lane inputs: a synthetic mix
+            (clean encoded messages, noisy copies at sigma 20-80, random
             symbols, 16 padding lanes), the attempts the B=512 hybrid
             decode hands to its first device Fano call and, where
             another is heavier, its heaviest call (caught by wrapping
@@ -43,8 +45,9 @@ Phases, in order; any failure exits non-zero before the last line:
             the step counts) and against native.fano_decode at 256 and
             10000: zero mismatches. Device times at 16, 64, 256 and the
             calibrated budget, the plain version's time at 16, the host
-            time of native.fano_decode_many on the same lanes, the bound
-            and the slowest lane's step count.
+            time of native.fano_decode_many on the same lanes, the bound,
+            the slowest lane's step count and the SM clock cycles a flat
+            step takes on it.
 6. decode   512 mixed windows through decode_channels (full jitter
             schedule, 2 passes, device_batch=128): the calibration and
             its describe() line; fec="host", then fec="hybrid" (the
@@ -53,11 +56,13 @@ Phases, in order; any failure exits non-zero before the last line:
             decode windows/s, every expected message found and no spot
             on a noise window, the hybrid spot lists equal to host's in
             message, jitter, cycles, freq, snr, dt and sync; then
-            decode_channels_pipelined (depth 2) over 4 batches of those
-            windows, each equal to the host result, with windows/s;
-            then one run in the mode fec="auto" picks under
-            torch.profiler (host time per labelled range, the card's
-            kernel time and busy share).
+            decode_channels_pipelined (depth 2, device cuda:0 named
+            explicitly) over 4 batches of those windows, each equal to
+            the host result, with windows/s; then one run in the mode
+            fec="auto" picks under torch.profiler (host time per
+            labelled range, the card's kernel time and busy share).
+            The calibration must have been measured once in the whole
+            run, whichever name of the card each caller used.
 
 Then a JSON line per kernel, the card's name and power limit, and the
 last line ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits
@@ -497,13 +502,13 @@ def phase_single(dev, chunks, refI, refQ):
     return launches, shapes
 
 
-# integer instructions of one flat Fano step (a forward look or one
-# backtrack move), counted from csrc/fano.cu: a forward look ~55 (the
-# threshold test and tighten, five node stores, the encoder symbol, two
-# branch metrics from shared memory, the sort), a backtrack move ~15
-# (the threshold test, five node loads, the branch test); the walks take
-# them about one for one
-FANO_STEP_OPS = 35
+# instructions of one flat Fano step (a forward look or one backtrack
+# move): csrc/fano.cu computes both paths with selects each iteration,
+# so every step issues its search loop's body once: the SASS loop body
+# that tools/fano_blocks.py counts (the node record load and store, the
+# metric load, the threshold tests, the closed-form tightening, the
+# encoder parity, the branch sort, the merges and exit tests)
+FANO_STEP_OPS = 108
 FANO_BUDGETS = (16, 64, 256)
 FANO_FIELDS = ("data", "success", "metric", "cycles", "maxnp")
 
@@ -583,6 +588,15 @@ def phase_fano(dev, name, card, wi, wq, opts, DB):
     # measured at the first decode with fec="auto" (the front-end phase)
     cal = calibrate.get_fec_calibration(dev)
     log(f"[fano] calibration {json.dumps(cal.as_dict())} ({card})")
+    if cal.method == "measured":
+        # _bucket_budget: timeout / device_cycle_ms >= 160 -> budget 256
+        log(f"[fano] device_cycle_ms {cal.device_cycle_ms} against "
+            f"{cal.native_timeout_ms / 160:.4f} ms that budget 256 allows "
+            f"(native timeout {cal.native_timeout_ms} ms / 160): budget "
+            f"{cal.device_maxcycles} ({card})")
+    # the kernel's checks and times on the card named with its index,
+    # so that the launcher selects it from the tensors' device
+    dev = torch.device("cuda", 0)
     mt = torch.from_numpy(METTAB).to(dev)
     calls = capture_fano_calls(dev, wi, wq, opts, DB)
     # the decode's heaviest call: the most flat steps at the budget the
@@ -599,6 +613,7 @@ def phase_fano(dev, name, card, wi, wq, opts, DB):
     bw = card_peaks(name)[2]
     int_rate = int32_rate(name)
     threads = os.cpu_count() or 1
+    cycles_per_ms = _spin_cycles_per_ms()
     budgets = sorted(set(FANO_BUDGETS) | {cal.device_maxcycles})
     rows = []
     for label, (syms, valid) in inputs.items():
@@ -653,7 +668,9 @@ def phase_fano(dev, name, card, wi, wq, opts, DB):
                        plain_ms=plain_ms if mc == 16 else None,
                        host_ms=host_ms, host_threads=threads,
                        steps_total=int(steps.sum()),
-                       steps_max_lane=int(steps.max()), bytes=nbytes,
+                       steps_max_lane=int(steps.max()),
+                       cycles_per_step=ms * cycles_per_ms / int(steps.max()),
+                       bytes=nbytes,
                        bytes_ms=bytes_ms, ops_ms=ops_ms,
                        bound_ms=max(bytes_ms, ops_ms),
                        bound_by="bytes" if bytes_ms >= ops_ms
@@ -664,7 +681,9 @@ def phase_fano(dev, name, card, wi, wq, opts, DB):
                 f" ms, native on {threads} threads {host_ms:.3f} ms, bound "
                 f"{row['bound_ms']:.5f} ms ({row['bound_by']}; "
                 f"{row['steps_total']} steps, slowest lane "
-                f"{row['steps_max_lane']})")
+                f"{row['steps_max_lane']}: "
+                f"{row['cycles_per_step']:.1f} cycles a step at "
+                f"{cycles_per_ms / 1e6:.3f} GHz)")
         del s, v
     return rows, cal
 
@@ -741,14 +760,15 @@ def phase_decode(dev, card, wi, wq, calls, cal, DB: int = 128):
     want = fields(host)
     t0 = time.perf_counter()
     out = list(decode_channels_pipelined(
-        [(wi, wq)] * n_batches, opts, depth=2, device_batch=DB, device=dev))
+        [(wi, wq)] * n_batches, opts, depth=2, device_batch=DB,
+        device="cuda:0"))
     torch.cuda.synchronize()
     pipe_s = time.perf_counter() - t0
     if len(out) != n_batches or any(fields(o) != want for o in out):
         fail("a pipelined batch differs from the host decode")
     pipe_rate = n_batches * B / pipe_s
-    log(f"[decode] decode_channels_pipelined depth 2, {n_batches} x {B} "
-        f"windows (fec=auto: {cal.mode}): {pipe_s:.2f} s = {pipe_rate:.1f} "
+    log(f"[decode] decode_channels_pipelined depth 2 on cuda:0, {n_batches}"
+        f" x {B} windows (fec=auto: {cal.mode}): {pipe_s:.2f} s = {pipe_rate:.1f} "
         f"decode windows/s ({card}); every batch equals the host decode")
     phase_profile(lambda: run("auto"), card)
     return dict(host=host_rate, hybrid=hybrid_rate, pipelined=pipe_rate,
@@ -796,9 +816,26 @@ def phase_profile(run, card):
                            for e in top]}}))
 
 
+def counting_calibrations() -> list:
+    """Wrap ops/calibrate.py's measurement so that each one is noted
+    (the device it was asked for); returns the list it fills."""
+    from rtlsdr_wsprd_tpu_torch.ops import calibrate
+
+    real = calibrate._calibrate
+    measured = []
+
+    def counting(device):
+        measured.append(str(device))
+        return real(device)
+
+    calibrate._calibrate = counting
+    return measured
+
+
 def main() -> None:
     t_start = time.perf_counter()
     dev, name, card = phase_env()
+    measured = counting_calibrations()
     phase_build()
     chunks = synth_capture()
     launches, shapes, refI, refQ = phase_frontend(dev, chunks)
@@ -813,6 +850,11 @@ def main() -> None:
     fano_rows, cal = phase_fano(dev, name, card, wi, wq, DecoderOptions(),
                                 128)
     dec = phase_decode(dev, card, wi, wq, calls, cal)
+    # cuda, cuda:0 and None (describe) name one card: one measurement
+    log(f"[decode] FEC calibrations measured in this run: {measured}")
+    if len(measured) != 1:
+        fail(f"the FEC calibration was measured {len(measured)} times: "
+             f"{measured}")
     kernels = []
     for kname, route, src in (
             ("polyphase_tc", "tc", "polyphase_tc.cu"),

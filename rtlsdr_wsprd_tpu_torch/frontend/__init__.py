@@ -1,8 +1,10 @@
 """Streaming front end: 2.4 Msps raw IQ -> 375 sps baseband.
 
-Two polyphase FIR stages (R=80 each) through one hand-written CUDA
-kernel (``polyphase.py``, ``csrc/polyphase.cu``); the fs/4 downmix is
-folded into the stage-1 taps (``filters.py``).
+Two polyphase FIR stages (R=80 each) through two hand-written CUDA
+kernels, chosen per call by ``polyphase.py``: ``csrc/polyphase_tc.cu``
+(uint8 stage 1, on the tensor cores) and ``csrc/polyphase.cu`` (float32
+stage 1 and stage 2); the fs/4 downmix is folded into the stage-1 taps
+(``filters.py``).
 """
 
 from .decimate import (  # noqa: F401

@@ -270,20 +270,23 @@ def polyphase_decimate(xI: torch.Tensor, xQ: torch.Tensor,
         return (out[0, 0], out[1, 0]) if single else (out[0], out[1])
     tabs = filt.tensors(xI.device)
     lib = _load_kernel(route)
-    stream = torch.cuda.current_stream(xI.device).cuda_stream
     # 16-byte loads where both planes' rows start 16-byte aligned
     row_bytes = rI.stride(0) * rI.element_size() if rows > 1 else 0
     vec = int((rI.data_ptr() | rQ.data_ptr() | row_bytes) % 16 == 0)
-    if route == "tc":
-        rc = lib.polyphase_tc_decimate(
-            rI.data_ptr(), rQ.data_ptr(), rows, rI.stride(0), vec,
-            tabs.b_frag.data_ptr(), n_frames, out[0].data_ptr(),
-            out[1].data_ptr(), n_frames, stream)
-    else:
-        rc = lib.polyphase_decimate(
-            rI.data_ptr(), rQ.data_ptr(), rows, rI.stride(0), vec,
-            tabs.gr.data_ptr(), tabs.gi.data_ptr(), filt.T, filt.R, n_frames,
-            out[0].data_ptr(), out[1].data_ptr(), n_frames, stream)
+    # launch in the tensors' device, whatever the calling thread's is
+    with torch.cuda.device(xI.device):
+        stream = torch.cuda.current_stream(xI.device).cuda_stream
+        if route == "tc":
+            rc = lib.polyphase_tc_decimate(
+                rI.data_ptr(), rQ.data_ptr(), rows, rI.stride(0), vec,
+                tabs.b_frag.data_ptr(), n_frames, out[0].data_ptr(),
+                out[1].data_ptr(), n_frames, stream)
+        else:
+            rc = lib.polyphase_decimate(
+                rI.data_ptr(), rQ.data_ptr(), rows, rI.stride(0), vec,
+                tabs.gr.data_ptr(), tabs.gi.data_ptr(), filt.T, filt.R,
+                n_frames, out[0].data_ptr(), out[1].data_ptr(), n_frames,
+                stream)
     if rc != 0:
         raise RuntimeError(f"polyphase {route} kernel launch failed: CUDA "
                            f"error {rc}")

@@ -151,10 +151,21 @@ _CACHE: dict = {}
 _CACHE_LOCK = threading.Lock()
 
 
+def _cache_key(device) -> str:
+    """The calibration's cache key: the indexed device, so that None,
+    ``cuda`` and ``cuda:<current device>`` share one measurement
+    (``cuda:0`` where CUDA is absent)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None:
+        idx = torch.cuda.current_device() if torch.cuda.is_available() else 0
+        dev = torch.device("cuda", idx)
+    return str(dev)
+
+
 def get_fec_calibration(device=None) -> FecCalibration:
     """Memoized per-process calibration for ``device`` (None: the CUDA
-    card); see the module docstring."""
-    key = str(torch.device("cuda" if device is None else device))
+    card), measured once a device; see the module docstring."""
+    key = _cache_key(device)
     with _CACHE_LOCK:
         hit = _CACHE.get(key)
         if hit is None:

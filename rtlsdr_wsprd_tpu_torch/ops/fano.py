@@ -10,10 +10,12 @@ decoder (``native.fano_decode``) is: success, path metric, cycle count
 and deepest node on every lane, decoded bytes on every lane that
 succeeded.
 
-- ``csrc/fano.cu`` runs one lane per thread: the C automaton of
-  ``native/hostdsp.cpp`` ``wspr_fano_decode``, its current node in
-  registers and its node stack in thread-local memory, with the metric
-  table in shared memory.
+- ``csrc/fano.cu`` runs one lane per thread, as the flattened state
+  machine below: one converged flat step of every live lane a loop
+  iteration, the current node in registers, the node stack and the
+  lane's precomputed branch metrics (int16) in shared memory laid out
+  [node][lane]. Its table must keep a sum of two entries within int16:
+  tables with entries outside [-2^14, 2^14) raise on the card.
 - ``batched_fano_plain`` is the JAX package's lane-parallel state
   machine in torch: (B, 82) node tensors, one flat step (a forward look
   or one backtrack move per lane, chosen by ``back``) per iteration of a
@@ -34,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+import weakref
 from pathlib import Path
 from typing import NamedTuple
 
@@ -297,6 +300,26 @@ def batched_fano_plain(symbols: torch.Tensor, mettab: torch.Tensor,
                       steps=nsteps.to(i32) if steps else None)
 
 
+_TABLE_LIMIT = 2 ** 14  # |entry| bound that keeps a branch metric int16
+_TABLES_CHECKED: dict[int, tuple] = {}
+
+
+def _check_table_range(mettab: torch.Tensor) -> None:
+    """Raise unless every entry of ``mettab`` lies in [-2^14, 2^14): the
+    kernel keeps branch metrics (sums of two entries) as int16. The
+    check reads the table back once per tensor and version (the decode
+    passes one cached table), not on every call."""
+    hit = _TABLES_CHECKED.get(id(mettab))
+    if hit is not None and hit[0]() is mettab and hit[1] == mettab._version:
+        return
+    lo, hi = (int(v) for v in torch.aminmax(mettab))
+    if lo < -_TABLE_LIMIT or hi >= _TABLE_LIMIT:
+        raise ValueError(f"metric table entries must lie in [-{_TABLE_LIMIT}, "
+                         f"{_TABLE_LIMIT}) for the kernel's int16 branch "
+                         f"metrics, got [{lo}, {hi}]")
+    _TABLES_CHECKED[id(mettab)] = (weakref.ref(mettab), mettab._version)
+
+
 def batched_fano(symbols: torch.Tensor, mettab: torch.Tensor,
                  delta: int = 60, maxcycles: int = 10000,
                  valid: torch.Tensor | None = None,
@@ -334,6 +357,7 @@ def batched_fano(symbols: torch.Tensor, mettab: torch.Tensor,
                               or tuple(valid.shape) != (B,)):
         raise ValueError(f"valid must be bool[{B}], got "
                          f"{valid.dtype}{tuple(valid.shape)}")
+    _check_table_range(mettab)
     symbols = symbols.contiguous()
     mettab = mettab.contiguous()
     valid = None if valid is None else valid.contiguous()
@@ -347,13 +371,14 @@ def batched_fano(symbols: torch.Tensor, mettab: torch.Tensor,
     if B == 0:
         return FanoResult(data, success, metric, cycles, maxnp, nsteps)
     lib = _load_kernel()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.fano_decode_lanes(
-        symbols.data_ptr(), None if valid is None else valid.data_ptr(),
-        mettab.data_ptr(), B, delta, maxcycles, data.data_ptr(),
-        success.data_ptr(), metric.data_ptr(), cycles.data_ptr(),
-        maxnp.data_ptr(), None if nsteps is None else nsteps.data_ptr(),
-        stream)
+    # launch in the tensors' device, whatever the calling thread's is
+    with torch.cuda.device(dev):
+        rc = lib.fano_decode_lanes(
+            symbols.data_ptr(), None if valid is None else valid.data_ptr(),
+            mettab.data_ptr(), B, delta, maxcycles, data.data_ptr(),
+            success.data_ptr(), metric.data_ptr(), cycles.data_ptr(),
+            maxnp.data_ptr(), None if nsteps is None else nsteps.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fano kernel launch failed: CUDA error {rc}")
     batched_fano.launches += 1

@@ -753,9 +753,11 @@ def decode_channels_pipelined(
     handle.
 
     Up to ``depth`` batches decode at once, each in ``decode_channels``
-    on a worker thread and on the caller's current CUDA stream: one
-    batch's host work (quantization, host FEC, spot assembly; native
-    code releases the GIL) overlaps another's device stages.
+    on a worker thread. PyTorch's current stream is per thread, so the
+    workers run on the device's default stream, not on a stream the
+    caller made current: one batch's host work (quantization, host FEC,
+    spot assembly; native code releases the GIL) overlaps another's
+    device stages.
 
     ``on_error``: optional callable. A batch whose decode raises is
     reported to it (``on_error(exc)``) and yielded as empty spot lists,

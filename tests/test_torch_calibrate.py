@@ -133,6 +133,29 @@ def test_describe_forms(monkeypatch):
         "0.0125 ms/cycle, native clean 0.03 / timeout 12 ms)")
 
 
+def test_one_measurement_for_one_card(monkeypatch):
+    """``cuda``, ``cuda:0`` and None name one card (a host-fed decode
+    passes ``cuda``, a ``prepare_windows_device`` handle ``cuda:0``,
+    ``describe()`` None): one measurement serves all three, and
+    ``_calibrate`` gets the device as given. Another device is measured
+    on its own."""
+    calls = []
+
+    def counting(device):
+        calls.append(device)
+        return pcal.FecCalibration("host", DEVICE_MAXCYCLES, -1.0, -1.0,
+                                   -1.0, "default")
+
+    monkeypatch.setattr(pcal, "_calibrate", counting)
+    first = pcal.get_fec_calibration("cuda")
+    for dev in ("cuda:0", None, torch.device("cuda", 0)):
+        assert pcal.get_fec_calibration(dev) is first
+    pcal.describe()
+    assert calls == ["cuda"]
+    pcal.get_fec_calibration("cpu")
+    assert calls == ["cuda", "cpu"]
+
+
 def test_device_measurement_refuses_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         pcal.measure_device_fano_cycle_ms("cpu")

@@ -5,6 +5,7 @@ small emulation of the CUDA constructs it uses, the wrapper's routing,
 the hybrid straggler finish, and the native encoder binding."""
 
 import ctypes
+import re
 import subprocess
 import textwrap
 from pathlib import Path
@@ -12,6 +13,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from hypothesis import assume, example, given, settings
+from hypothesis import strategies as st
 
 import jax.numpy as jnp
 
@@ -162,6 +165,25 @@ def test_wrapper_routes_cpu_to_plain():
         pfano.batched_fano(s, m, 60, 10 ** 8)
 
 
+def test_table_range_guard():
+    """The kernel keeps branch metrics as int16, so the wrapper takes a
+    metric table only with entries in [-2^14, 2^14): METTAB passes (and
+    is read back once, not on every call); a table past the bound, or
+    one changed in place to lie past it, raises."""
+    m = torch.from_numpy(MET.copy())
+    pfano._check_table_range(m)
+    assert pfano._TABLES_CHECKED[id(m)][1] == m._version
+    pfano._check_table_range(m)  # remembered: no second read-back
+    m[0, 0] = 2 ** 14
+    with pytest.raises(ValueError, match="int16"):
+        pfano._check_table_range(m)
+    m[0, 0] = -2 ** 14
+    pfano._check_table_range(m)
+    with pytest.raises(ValueError, match="int16"):
+        pfano._check_table_range(torch.full((2, 256), -2 ** 14 - 1,
+                                            dtype=torch.int32))
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_cuda():
     """csrc/fano.cu against the plain version on the card at budgets 4
@@ -187,7 +209,9 @@ def test_kernel_matches_plain_on_cuda():
 
 # Host emulation of the CUDA constructs fano.cu uses: a block's threads
 # run as std::threads that meet at a std::barrier for __syncthreads(),
-# blocks one after another, so __shared__ arrays can be plain statics.
+# blocks one after another, so __shared__ arrays can be plain statics and
+# the dynamic shared memory one static buffer (the fixture points the
+# kernel's extern __shared__ array at it).
 _SHIM = textwrap.dedent("""\
     #include <algorithm>
     #include <barrier>
@@ -205,20 +229,32 @@ _SHIM = textwrap.dedent("""\
     static std::barrier<>* g_bar;
     inline void __syncthreads() { g_bar->arrive_and_wait(); }
     inline int __popc(uint32_t v) { return __builtin_popcount(v); }
+    inline uint32_t __umulhi(uint32_t a, uint32_t b) {
+      return static_cast<uint32_t>((uint64_t{a} * b) >> 32);
+    }
+    struct alignas(16) uint4 { unsigned x, y, z, w; };
+    struct alignas(8) uint2 { unsigned x, y; };
+    inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
+      return {x, y, z, w};
+    }
+    inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
+    static uint4 g_smem[232448 / 16];  // a block's most shared memory
     using std::min;
     """)
+_DYNAMIC_SHARED = "extern __shared__ uint4 smem[];"
 _LAUNCHER = textwrap.dedent("""\
+    static_assert(kSmemBytes <= sizeof(g_smem));
     extern "C" void emu_fano(const uint8_t* symbols, const uint8_t* valid,
                              const int32_t* mettab, int n, int delta,
                              unsigned maxcycles, uint8_t* data,
                              uint8_t* success, int32_t* metric,
                              int32_t* cycles, int32_t* maxnp,
                              int32_t* steps) {
-      for (int b = 0; b < (n + kThreads - 1) / kThreads; ++b) {
-        std::barrier<> bar(kThreads);
+      for (int b = 0; b < (n + kLanes - 1) / kLanes; ++b) {
+        std::barrier<> bar(kLanes);
         g_bar = &bar;
         std::vector<std::thread> ts;
-        for (int t = 0; t < kThreads; ++t) {
+        for (int t = 0; t < kLanes; ++t) {
           ts.emplace_back([=] {
             threadIdx.x = t;
             blockIdx.x = b;
@@ -229,18 +265,31 @@ _LAUNCHER = textwrap.dedent("""\
         for (auto& th : ts) th.join();
       }
     }
+    // the kernel's tightening and the C loop it replaces
+    extern "C" int emu_tighten(int t, int ngamma, int delta) {
+      return tighten(t, ngamma, delta, 0xFFFFFFFFu / unsigned(delta));
+    }
+    extern "C" int c_tighten_loop(int t, int ngamma, int delta) {
+      while (ngamma >= t + delta) t += delta;
+      return t;
+    }
     """)
+# lanes a block the kernel is built and checked with (its source's
+# kLanes is rewritten for each); chosen among them by tools/fano_blocks.py
+LANES_A_BLOCK = (32, 64, 96)
 
 
-@pytest.fixture(scope="module")
-def emulated_kernel(tmp_path_factory):
-    """csrc/fano.cu's kernel (its launcher cut off) compiled with g++
-    over the shim above; returns run(symbols, valid, maxcycles) ->
-    field -> numpy array."""
+def _build_emulated(d: Path, lanes: int):
+    """csrc/fano.cu's kernel (its launcher cut off) with ``kLanes`` set
+    to ``lanes``, compiled with g++ over the shim above; returns the
+    library."""
     src = (Path(pfano.__file__).parent / "csrc" / "fano.cu").read_text()
     src = src.replace("#include <cuda_runtime.h>", "")
+    src, k = re.subn(r"constexpr int kLanes = \d+;",
+                     f"constexpr int kLanes = {lanes};", src)
+    assert k == 1 and src.count(_DYNAMIC_SHARED) == 1
+    src = src.replace(_DYNAMIC_SHARED, "uint4* const smem = g_smem;")
     body = src[:src.index('extern "C"')]
-    d = tmp_path_factory.mktemp("fano_emu")
     (d / "emu.cpp").write_text(_SHIM + body + _LAUNCHER)
     r = subprocess.run(["g++", "-std=c++20", "-O2", "-fPIC", "-shared",
                         "-pthread", "-o", str(d / "libemu.so"),
@@ -248,9 +297,20 @@ def emulated_kernel(tmp_path_factory):
                        timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     lib = ctypes.CDLL(str(d / "libemu.so"))
-    vp = ctypes.c_void_p
-    lib.emu_fano.argtypes = [vp, vp, vp, ctypes.c_int, ctypes.c_int,
-                             ctypes.c_uint] + [vp] * 6
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.emu_fano.argtypes = [vp, vp, vp, ci, ci, ctypes.c_uint] + [vp] * 6
+    for f in (lib.emu_tighten, lib.c_tighten_loop):
+        f.argtypes = [ci, ci, ci]
+        f.restype = ci
+    return lib
+
+
+@pytest.fixture(scope="module", params=LANES_A_BLOCK,
+                ids=[f"{n}lanes" for n in LANES_A_BLOCK])
+def emulated_kernel(request, tmp_path_factory):
+    """The emulated kernel at each candidate block size; returns
+    run(symbols, valid, maxcycles) -> field -> numpy array."""
+    lib = _build_emulated(tmp_path_factory.mktemp("fano_emu"), request.param)
 
     def run(syms, valid, mc):
         n = syms.shape[0]
@@ -271,11 +331,11 @@ def emulated_kernel(tmp_path_factory):
 
 
 def test_kernel_source_emulated_matches_plain_and_native(emulated_kernel):
-    """The kernel's own source, run on the host, over 150 lanes (two
-    blocks, the second ragged; padding lanes among them): equal to the
-    plain version in every field and in the flat step counts at budgets
-    4 and 16, and to the native decoder at 256 and 10000, with zero data
-    wherever a lane did not succeed."""
+    """The kernel's own source, run on the host at each candidate block
+    size, over 150 lanes (the last block ragged; padding lanes among
+    them): equal to the plain version in every field and in the flat
+    step counts at budgets 4 and 16, and to the native decoder at 256
+    and 10000, with zero data wherever a lane did not succeed."""
     syms, valid = fano_mix(26, n_clean=30, sigmas=tuple(range(20, 81, 1)),
                            n_garbage=50, n_pad=9)
     assert syms.shape[0] == 150
@@ -294,6 +354,37 @@ def test_kernel_source_emulated_matches_plain_and_native(emulated_kernel):
     assert got["success"].sum() >= 60
     # a timeout lane runs the full budget: maxcycles*81 + 2
     assert got["cycles"].max() == 10000 * 81 + 2
+
+
+@pytest.fixture(scope="module")
+def emulated_lib(tmp_path_factory):
+    return _build_emulated(tmp_path_factory.mktemp("fano_tighten"),
+                           LANES_A_BLOCK[0])
+
+
+I32_MIN, I32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+@settings(max_examples=400, deadline=None)
+@given(delta=st.integers(1, 255), t=st.integers(I32_MIN, I32_MAX),
+       k=st.integers(0, 2 ** 15 + 254), below_delta=st.booleans())
+@example(delta=255, t=I32_MIN, k=2 ** 15 + 254, below_delta=False)
+@example(delta=1, t=I32_MAX - 2 ** 15 - 1, k=2 ** 15, below_delta=False)
+@example(delta=60, t=-48_600_060, k=69, below_delta=False)
+def test_closed_form_tightening_equals_c_loop(emulated_lib, delta, t, k,
+                                              below_delta):
+    """The kernel's closed-form tightening equals the C's add loop
+    ``while (ngamma >= t + delta) t += delta`` wherever the decoder can
+    call it: a first visit (gamma < t + delta) with a branch metric of
+    at most 2^15 - 1 gives 0 <= ngamma - t < delta + 2^15, at any t of
+    the int32 range that keeps the loop's t + delta from overflowing
+    (``below_delta``: ngamma - t under delta, where the loop adds
+    nothing)."""
+    k = k % delta if below_delta else k
+    ngamma = t + k
+    assume(k < delta + 2 ** 15 and ngamma + delta <= I32_MAX)
+    assert emulated_lib.emu_tighten(t, ngamma, delta) == \
+        emulated_lib.c_tighten_loop(t, ngamma, delta)
 
 
 def test_host_finish_completes_to_full_budget():
