@@ -504,11 +504,12 @@ def phase_single(dev, chunks, refI, refQ):
 
 # instructions of one flat Fano step (a forward look or one backtrack
 # move): csrc/fano.cu computes both paths with selects each iteration,
-# so every step issues its search loop's body once: the SASS loop body
-# that tools/fano_blocks.py counts (the node record load and store, the
-# metric load, the threshold tests, the closed-form tightening, the
-# encoder parity, the branch sort, the merges and exit tests)
-FANO_STEP_OPS = 108
+# so every step issues its search loop's body once (the node record
+# load and store, the metric load, the threshold tests, the closed-form
+# tightening, the encoder parity, the branch sort, the merges and the
+# exit test): 87 SASS instructions at 32 lanes a block, as
+# tools/fano_blocks.py counts them
+FANO_STEP_OPS = 87
 FANO_BUDGETS = (16, 64, 256)
 FANO_FIELDS = ("data", "success", "metric", "cycles", "maxnp")
 

@@ -43,10 +43,14 @@
 // [-2^14, 2^14). METTAB's lie in -137..5. gamma and the threshold stay
 // int32.
 //
-// Shared memory (dynamic): kLanes x 1,944 bytes (node records 1,296,
-// branch metrics 648). The prologue stages the metric table and the
-// block's symbol rows inside the node-record area, which the search
-// writes only after a barrier.
+// Shared memory (dynamic): kLanes x 1,968 bytes, 82 rows of node
+// records (16 bytes) and 82 of branch metrics (8 bytes). Record row
+// p + 1 holds node p and metric row n node n, so that the loads of the
+// node above and of the next node's metrics need no clamp: row 0 of the
+// records is read at the origin and metric row 81 at the last node, and
+// neither value is used. The prologue stages the metric table and the
+// block's symbol rows inside the record area, which the search writes
+// only after a barrier.
 //
 // Outputs follow the C: success (break iteration < maxcycles*81),
 // metric, cycles (break iteration + 1, or maxcycles*81 + 2 on timeout),
@@ -68,10 +72,11 @@ constexpr int kNBits = 81;
 constexpr int kTail = kNBits - 31;  // first node of the all-zero tail
 constexpr int kSyms = 2 * kNBits;   // 162 soft symbols a lane
 constexpr int kLanes = 32;          // lanes (threads) a block
-// node records uint4[kNBits][kLanes], then branch metrics
-// uint2[kNBits][kLanes]
-constexpr int kRecBytes = kNBits * 16 * kLanes;
-constexpr int kSmemBytes = kRecBytes + kNBits * 8 * kLanes;
+constexpr int kRows = kNBits + 1;
+// node records uint4[kRows][kLanes], then branch metrics
+// uint2[kRows][kLanes]
+constexpr int kRecBytes = kRows * 16 * kLanes;
+constexpr int kSmemBytes = kRecBytes + kRows * 8 * kLanes;
 static_assert(kLanes % 16 == 0,
               "conflict-free 64-bit metric loads need lanes a multiple of 16");
 static_assert(2 * 256 * 4 + kSyms * kLanes <= kRecBytes,
@@ -121,8 +126,8 @@ fano_kernel(const uint8_t* __restrict__ symbols,
             int32_t* __restrict__ out_maxnp,
             int32_t* __restrict__ out_steps) {
   extern __shared__ uint4 smem[];
-  uint4* const rec = smem;  // node p of lane l at rec[p * kLanes + l]
-  uint2* const bm = reinterpret_cast<uint2*>(smem + kNBits * kLanes);
+  uint4* const rec = smem;  // node p of lane l at rec[(p + 1) * kLanes + l]
+  uint2* const bm = reinterpret_cast<uint2*>(smem + kRows * kLanes);
   // prologue staging, inside the record area
   int32_t* const met = reinterpret_cast<int32_t*>(smem);  // [2][256]
   uint8_t* const sym_s = reinterpret_cast<uint8_t*>(smem) + 2 * 256 * 4;
@@ -157,6 +162,7 @@ fano_kernel(const uint8_t* __restrict__ symbols,
       bm[n * kLanes + tid] =
           make_uint2(pack16(a0 + c0, a0 + c1), pack16(a1 + c0, a1 + c1));
     }
+    bm[kNBits * kLanes + tid] = make_uint2(0u, 0u);  // the pad row
   }
   __syncthreads();  // the record area is the node stack from here on
   if (tid >= lanes_here) return;
@@ -186,25 +192,26 @@ fano_kernel(const uint8_t* __restrict__ symbols,
   uint32_t cenc = b0 <= b1 ? 1u : 0u;
   int32_t ctm0 = b0 > b1 ? b0 : b1;
   int32_t ctm1 = b0 > b1 ? b1 : b0;
-  int32_t cbr = 0;
-  int pos = 0;
+  uint32_t cbr = 0;
+  int off = 0;      // pos * kLanes: the row offset of the position
+  int off_max = 0;  // maxnp * kLanes
   int32_t t = 0;
-  int32_t maxnp = 0;
   int32_t steps = 0;
-  uint32_t i = 0;  // the C's cycle index: forward looks so far
+  uint32_t i = 0;   // the C's cycle index: forward looks so far
   bool back = false;
 
   for (;;) {
     ++steps;
-    // both loads' addresses depend only on pos: the node above (for a
-    // backtrack move) and the next node's metrics (for a forward move)
-    const uint4 up = my_rec[(pos > 0 ? pos - 1 : 0) * kLanes];
-    const uint2 nm = my_bm[(pos < kNBits - 1 ? pos + 1 : kNBits - 1) * kLanes];
+    // both loads' addresses depend only on the position: the node above
+    // (for a backtrack move) and the next node's metrics (for a forward
+    // move)
+    const uint4 up = my_rec[off];
+    const uint2 nm = my_bm[off + kLanes];
 
     // forward look (wsprd/fano.c:152-197)
     const int32_t ngamma = cg + (cbr ? ctm1 : ctm0);
     const bool fwd = !back && ngamma >= t;
-    if (fwd) my_rec[pos * kLanes] = make_uint4(cg, cenc, pack16(ctm0, ctm1), cbr);
+    if (fwd) my_rec[off + kLanes] = make_uint4(cg, cenc, pack16(ctm0, ctm1), cbr);
     // tighten the threshold on first visits
     const int32_t t_fwd =
         cg < t + delta ? tighten(t, ngamma, udelta, dinv) : t;
@@ -212,19 +219,19 @@ fano_kernel(const uint8_t* __restrict__ symbols,
     branch_pair(nm, encode_sym(enc0), b0, b1);
     // best branch first, the complement encoder bit when the 1-branch
     // wins (ties to the 1-branch); the tail explores only the 0-branch
-    const bool swap = pos + 1 < kTail && b0 <= b1;
+    const bool swap = off < (kTail - 1) * kLanes && b0 <= b1;
 
     // one backtrack move (wsprd/fano.c:199-219): relax at the origin or
     // where the node above lies below the threshold, else move up and
     // take its other branch where it has one
-    const bool relax = pos == 0 || static_cast<int32_t>(up.x) < t;
+    const bool relax = off == 0 || static_cast<int32_t>(up.x) < t;
     const bool b_relax = back && relax;
     const bool b_up = back && !relax;
-    const uint32_t alt = (b_up && pos - 1 < kTail && up.w == 0u) ? 1u : 0u;
+    const bool alt = b_up && off <= kTail * kLanes && up.w == 0u;
 
     if (!back) {
       i += 1;
-      maxnp = pos > maxnp ? pos : maxnp;
+      off_max = off > off_max ? off : off_max;
     }
     t = fwd ? t_fwd : (b_relax ? t - delta : t);
     cg = fwd ? ngamma : (b_up ? static_cast<int32_t>(up.x) : cg);
@@ -232,29 +239,34 @@ fano_kernel(const uint8_t* __restrict__ symbols,
                : (b_up ? static_cast<int32_t>(up.z << 16) >> 16 : ctm0);
     ctm1 = fwd ? (swap ? b0 : b1)
                : (b_up ? static_cast<int32_t>(up.z) >> 16 : ctm1);
-    cenc = fwd ? (enc0 | (swap ? 1u : 0u))
-               : (b_up ? (up.y ^ alt) : (b_relax ? cenc ^ cbr : cenc));
-    cbr = (fwd || b_relax) ? 0 : (b_up ? static_cast<int32_t>(up.w + alt) : cbr);
-    pos = fwd ? pos + 1 : (b_up ? pos - 1 : pos);
+    // encoder state: the new node's, with the 1-branch's bit where it
+    // won; the node above's, flipped where its other branch is taken;
+    // or the relaxed node's, back on its 0-branch
+    const uint32_t enc = fwd ? enc0 : (b_up ? up.y : cenc);
+    const uint32_t flip = fwd ? swap : (b_up ? alt : (b_relax ? cbr : 0u));
+    cenc = enc ^ flip;
+    cbr = b_up ? (up.w | alt) : ((fwd || b_relax) ? 0u : cbr);
+    off += fwd ? kLanes : (b_up ? -kLanes : 0);
     back = back ? !(relax || alt) : !fwd;
 
-    if (pos == kNBits) break;                 // reached the last node
-    if (!back && i >= max_total) break;       // out of the budget
+    // the last node reached, or the budget spent out of a walk
+    if (off == kNBits * kLanes || (!back && i >= max_total)) break;
   }
 
   // gamma of the current node: the path metric at the end, or where
   // the budget ran out
   out_metric[lane] = cg;
-  out_maxnp[lane] = maxnp;
+  out_maxnp[lane] = off_max / kLanes;
   if (out_steps != nullptr) out_steps[lane] = steps;
-  const bool ok = pos == kNBits && i < max_total;
-  for (int k = 0; k < 10; ++k) {
-    data[k] = ok ? static_cast<uint8_t>(my_rec[(7 + 8 * k) * kLanes].y & 0xFFu)
+  const bool reached = off == kNBits * kLanes;
+  const bool ok = reached && i < max_total;
+  for (int k = 0; k < 10; ++k) {  // nodes 7, 15, ..., 79: rows 8, ..., 80
+    data[k] = ok ? static_cast<uint8_t>(my_rec[(8 + 8 * k) * kLanes].y & 0xFFu)
                  : 0;
   }
   data[10] = 0;
   out_success[lane] = ok ? 1 : 0;
-  out_cycles[lane] = static_cast<int32_t>(pos == kNBits ? i + 1 : max_total + 2);
+  out_cycles[lane] = static_cast<int32_t>(reached ? i + 1 : max_total + 2);
 }
 
 }  // namespace
