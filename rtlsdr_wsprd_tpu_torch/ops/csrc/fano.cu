@@ -12,8 +12,8 @@
 // same machine in PyTorch, and the per-lane step counts agree.
 //
 // What bounds it on an H100: each lane's serial dependency chain. A
-// call's bytes (162 a lane in, 24 out) and integer operations (a few
-// tens a step) are far below the card's rates, while a lane that times
+// call's bytes (162 a lane in, 24 out) and instructions (under a
+// hundred a step) are far below the card's rates, while a lane that times
 // out at the full budget takes ~1.2M dependent steps and a warp runs as
 // long as its slowest lane. So the design shortens a step's chain and
 // keeps a warp's lanes in step:
@@ -35,8 +35,9 @@
 // Hopper's matrix units (wgmma, mma.sync) and its TMA have nothing to do
 // here: there is no matrix product, and a lane's input is 162 bytes.
 // What the kernel uses is shared memory and its banks, registers, and
-// short chains; a step's chain (a shared load and a few tens of
-// dependent integer operations) is what bounds it now.
+// short chains; a step (two shared loads, one predicated store and
+// some 90 instructions that one warp issues with little overlap) is
+// what bounds it now.
 //
 // Branch metrics are int16: a sum of two metric-table entries must fit,
 // so the wrapper (ops/fano.py) refuses tables with entries outside

@@ -209,9 +209,9 @@ def test_kernel_matches_plain_on_cuda():
 
 # Host emulation of the CUDA constructs fano.cu uses: a block's threads
 # run as std::threads that meet at a std::barrier for __syncthreads(),
-# blocks one after another, so __shared__ arrays can be plain statics and
-# the dynamic shared memory one static buffer (the fixture points the
-# kernel's extern __shared__ array at it).
+# blocks one after another, so the dynamic shared memory can be one
+# static buffer (the fixture points the kernel's extern __shared__ array
+# at it).
 _SHIM = textwrap.dedent("""\
     #include <algorithm>
     #include <barrier>
@@ -223,7 +223,6 @@ _SHIM = textwrap.dedent("""\
     #define __forceinline__ inline
     #define __launch_bounds__(x)
     #define __restrict__
-    #define __shared__ static
     struct Dim3 { unsigned x; };
     thread_local Dim3 threadIdx, blockIdx;
     static std::barrier<>* g_bar;
