@@ -45,7 +45,9 @@ Phases, in order; any failure exits non-zero before the last line:
             the step counts) and against native.fano_decode at 256 and
             10000: zero mismatches. Device times at 16, 64, 256 and the
             calibrated budget, the plain version's time at 16, the host
-            time of native.fano_decode_many on the same lanes, the bound,
+            time of native.fano_decode_many on the same lanes, the bound
+            (the search's integer operations for the forward looks and
+            backtrack moves these inputs take, read from the outputs),
             the slowest lane's step count and the SM clock cycles a flat
             step takes on it.
 6. decode   512 mixed windows through decode_channels (full jitter
@@ -502,16 +504,41 @@ def phase_single(dev, chunks, refI, refQ):
     return launches, shapes
 
 
-# instructions of one flat Fano step (a forward look or one backtrack
-# move): csrc/fano.cu computes both paths with selects each iteration,
-# so every step issues its search loop's body once (the node record
-# load and store, the metric load, the threshold tests, the closed-form
-# tightening, the encoder parity, the branch sort, the merges and the
-# exit test): 87 SASS instructions at 32 lanes a block, as
-# tools/fano_blocks.py counts them
-FANO_STEP_OPS = 87
+# integer operations (arithmetic, compares, selects; loads, stores and
+# branches run on other units and are not counted) of the search itself,
+# wsprd/fano.c as native/hostdsp.cpp writes it, whatever the kernel
+# issues: every forward look 7 (the deepest-node update 2, the branch
+# metric's select and add 2, the threshold test 1, the cycle count and
+# its test 2); a look that moves 17 more (the first-visit test 2, the
+# encoder shift 1, the position step and end test 2, the encoder parity
+# 6, the complement symbol 1, the tail test 1, the branch sort 4); a
+# backtrack move 5 (the origin and threshold tests 3, then a relax's
+# threshold step and branch test, or the cheaper of that and a move up's
+# decrement, tail and branch tests). The threshold's tightening (first
+# visits only) and a relax's encoder flip are left out: the counts of
+# those are not known from the outputs.
+FANO_LOOK_OPS, FANO_MOVE_OPS, FANO_BACK_OPS = 7, 17, 5
 FANO_BUDGETS = (16, 64, 256)
 FANO_FIELDS = ("data", "success", "metric", "cycles", "maxnp")
+
+
+def fano_step_kinds(cycles: np.ndarray, steps: np.ndarray, maxcycles: int):
+    """Per lane (forward looks, backtrack moves, the fewest looks that
+    can have moved) from a call's ``cycles`` and ``steps`` outputs.
+    ``cycles`` is the looks + 1 where the last node was reached and
+    maxcycles*81 + 2 on a timeout (after maxcycles*81 looks); padding
+    lanes took no step. Every walk that a failed look starts ends in one
+    relax or one move up to another branch, and the final depth is the
+    moves forward less the moves up, so looks - backtrack moves = final
+    depth + walks that ended moving up, which is at least 0 and at most
+    the looks that moved."""
+    max_total = maxcycles * 81
+    looks = np.where(cycles == max_total + 2, max_total, cycles - 1)
+    looks = np.where(steps == 0, 0, looks).astype(np.int64)
+    back = steps.astype(np.int64) - looks
+    if (back < 0).any() or (looks < back).any():
+        fail(f"step counts do not fit the search at budget {maxcycles}")
+    return looks, back, looks - back
 
 
 def fano_mix(n: int = 512, n_pad: int = 16, seed: int = 5):
@@ -584,6 +611,7 @@ def phase_fano(dev, name, card, wi, wq, opts, DB):
         METTAB,
         batched_fano,
         batched_fano_plain,
+        device_mettab,
     )
 
     # measured at the first decode with fec="auto" (the front-end phase)
@@ -598,7 +626,7 @@ def phase_fano(dev, name, card, wi, wq, opts, DB):
     # the kernel's checks and times on the card named with its index,
     # so that the launcher selects it from the tensors' device
     dev = torch.device("cuda", 0)
-    mt = torch.from_numpy(METTAB).to(dev)
+    mt = device_mettab(dev)
     calls = capture_fano_calls(dev, wi, wq, opts, DB)
     # the decode's heaviest call: the most flat steps at the budget the
     # decode ran
@@ -652,8 +680,12 @@ def phase_fano(dev, name, card, wi, wq, opts, DB):
             if any(bad.values()):
                 fail(f"fano kernel vs native, {label} at {mc}: {bad}")
         for mc in budgets:
-            steps = batched_fano(s, mt, 60, mc, v,
-                                 steps=True).steps.cpu().numpy()
+            k = batched_fano(s, mt, 60, mc, v, steps=True)
+            steps = k.steps.cpu().numpy()
+            looks, back, moved = fano_step_kinds(k.cycles.cpu().numpy(),
+                                                 steps, mc)
+            ops = (FANO_LOOK_OPS * int(looks.sum()) + FANO_BACK_OPS
+                   * int(back.sum()) + FANO_MOVE_OPS * int(moved.sum()))
             ms = cuda_ms(lambda: batched_fano(s, mt, 60, mc, v),
                          reps=5 if mc > 64 else 25)
             t0 = time.perf_counter()
@@ -663,13 +695,16 @@ def phase_fano(dev, name, card, wi, wq, opts, DB):
             n = syms.shape[0]
             nbytes = n * 162 + METTAB.nbytes + n + n * (11 + 1 + 3 * 4)
             bytes_ms = nbytes / bw * 1e3
-            ops_ms = int(steps.sum()) * FANO_STEP_OPS / int_rate * 1e3
+            ops_ms = ops / int_rate * 1e3
             row = dict(input=label, lanes=n, live_lanes=live, maxcycles=mc,
                        calibrated=mc == cal.device_maxcycles, ms=ms,
                        plain_ms=plain_ms if mc == 16 else None,
                        host_ms=host_ms, host_threads=threads,
                        steps_total=int(steps.sum()),
                        steps_max_lane=int(steps.max()),
+                       forward_looks=int(looks.sum()),
+                       backtrack_moves=int(back.sum()),
+                       forward_moves_least=int(moved.sum()), ops=ops,
                        cycles_per_step=ms * cycles_per_ms / int(steps.max()),
                        bytes=nbytes,
                        bytes_ms=bytes_ms, ops_ms=ops_ms,
@@ -680,7 +715,10 @@ def phase_fano(dev, name, card, wi, wq, opts, DB):
             log(f"[fano] {label} x {n} lanes at {mc}: kernel {ms:.4f} ms, "
                 f"plain {'-' if row['plain_ms'] is None else round(plain_ms, 1)}"
                 f" ms, native on {threads} threads {host_ms:.3f} ms, bound "
-                f"{row['bound_ms']:.5f} ms ({row['bound_by']}; "
+                f"{row['bound_ms']:.5f} ms ({row['bound_by']}; {ops} "
+                f"integer operations: {row['forward_looks']} forward looks, "
+                f"at least {row['forward_moves_least']} of them moving, "
+                f"{row['backtrack_moves']} backtrack moves; "
                 f"{row['steps_total']} steps, slowest lane "
                 f"{row['steps_max_lane']}: "
                 f"{row['cycles_per_step']:.1f} cycles a step at "

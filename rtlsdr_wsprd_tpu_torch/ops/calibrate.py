@@ -73,7 +73,7 @@ def measure_device_fano_cycle_ms(device=None, lanes: int = 32) -> float:
     48, best of 3 each on the host clock with ``torch.cuda.synchronize``
     as the barrier, and the slope between them. Raises for a device
     that is not CUDA."""
-    from .fano import METTAB, batched_fano
+    from .fano import batched_fano, device_mettab
 
     dev = torch.device("cuda" if device is None else device)
     if dev.type != "cuda":
@@ -82,7 +82,7 @@ def measure_device_fano_cycle_ms(device=None, lanes: int = 32) -> float:
     rng = np.random.default_rng(20260821)
     syms = torch.from_numpy(
         rng.integers(0, 256, (lanes, 2 * NBITS), dtype=np.uint8)).to(dev)
-    mt = torch.from_numpy(METTAB).to(dev)
+    mt = device_mettab(dev)
 
     def timed(mc: int) -> float:
         batched_fano(syms, mt, delta=60, maxcycles=mc)

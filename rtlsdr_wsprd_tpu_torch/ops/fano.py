@@ -36,7 +36,6 @@ from __future__ import annotations
 
 import ctypes
 import threading
-import weakref
 from pathlib import Path
 from typing import NamedTuple
 
@@ -45,6 +44,7 @@ import torch
 
 from ..buildlib import build_shared, nvcc_path
 from ..config import NBITS
+from ..device import derived_const
 from ..utils.channel import POLY1, POLY2
 from ..utils.metric_tables import METRIC_TABLES
 
@@ -52,6 +52,10 @@ N_NODES = NBITS + 1  # 82: nodes[0..80] + the final position
 TAIL = NBITS - 31    # 50: first node of the all-zero tail (fano.c:112)
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "fano.cu"
+# the values of the source's kLanes (lanes a block) that
+# tools/fano_blocks.py times and tests/test_torch_fano.py checks; the
+# source keeps the first
+LANES_A_BLOCK = (32, 64, 96)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 _vp, _ci, _cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
@@ -301,23 +305,29 @@ def batched_fano_plain(symbols: torch.Tensor, mettab: torch.Tensor,
 
 
 _TABLE_LIMIT = 2 ** 14  # |entry| bound that keeps a branch metric int16
-_TABLES_CHECKED: dict[int, tuple] = {}
 
 
-def _check_table_range(mettab: torch.Tensor) -> None:
-    """Raise unless every entry of ``mettab`` lies in [-2^14, 2^14): the
-    kernel keeps branch metrics (sums of two entries) as int16. The
-    check reads the table back once per tensor and version (the decode
-    passes one cached table), not on every call."""
-    hit = _TABLES_CHECKED.get(id(mettab))
-    if hit is not None and hit[0]() is mettab and hit[1] == mettab._version:
-        return
-    lo, hi = (int(v) for v in torch.aminmax(mettab))
+def _check_table_range(mettab):
+    """``mettab`` (numpy or torch), or ValueError unless every entry
+    lies in [-2^14, 2^14): the kernel keeps branch metrics (sums of two
+    entries) as int16."""
+    lo, hi = int(mettab.min()), int(mettab.max())
     if lo < -_TABLE_LIMIT or hi >= _TABLE_LIMIT:
         raise ValueError(f"metric table entries must lie in [-{_TABLE_LIMIT}, "
                          f"{_TABLE_LIMIT}) for the kernel's int16 branch "
                          f"metrics, got [{lo}, {hi}]")
-    _TABLES_CHECKED[id(mettab)] = (weakref.ref(mettab), mettab._version)
+    return mettab
+
+
+def device_mettab(device) -> torch.Tensor:
+    """``METTAB`` on ``device``, checked on the host and uploaded once
+    (until ``device.clear_consts``). ``batched_fano`` takes this tensor
+    without reading it back; any other table costs a read-back a call.
+    ``cuda`` names the current card, as a tensor's device names it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return derived_const(_check_table_range, (METTAB,), dev)
 
 
 def batched_fano(symbols: torch.Tensor, mettab: torch.Tensor,
@@ -357,7 +367,8 @@ def batched_fano(symbols: torch.Tensor, mettab: torch.Tensor,
                               or tuple(valid.shape) != (B,)):
         raise ValueError(f"valid must be bool[{B}], got "
                          f"{valid.dtype}{tuple(valid.shape)}")
-    _check_table_range(mettab)
+    if mettab is not device_mettab(dev):
+        _check_table_range(mettab)
     symbols = symbols.contiguous()
     mettab = mettab.contiguous()
     valid = None if valid is None else valid.contiguous()

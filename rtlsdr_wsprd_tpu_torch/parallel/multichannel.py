@@ -64,7 +64,7 @@ from ..device import const, resolve_device
 from ..models.decoder import Spot
 from ..ops.candidates import find_candidates
 from ..ops.coarse import coarse_search
-from ..ops.fano import METTAB, batched_fano
+from ..ops.fano import METTAB, batched_fano, device_mettab
 from ..ops.fano_hybrid import host_finish, pending_mask
 from ..ops.stft import power_spectrogram
 from ..ops.subtract import subtract_rows
@@ -236,7 +236,7 @@ def _fano_batch_packed(deint: torch.Tensor, valid: torch.Tensor, *,
                        delta: int, maxcycles: int):
     """One device Fano call over attempts uint8 (FANO_BATCH, 162) with
     their valid mask: (success & valid, data, cycles) on the device."""
-    res = batched_fano(deint, const(METTAB, deint.device), delta=delta,
+    res = batched_fano(deint, device_mettab(deint.device), delta=delta,
                        maxcycles=maxcycles, valid=valid)
     return res.success & valid, res.data, res.cycles
 

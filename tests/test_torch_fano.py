@@ -167,21 +167,101 @@ def test_wrapper_routes_cpu_to_plain():
 
 def test_table_range_guard():
     """The kernel keeps branch metrics as int16, so the wrapper takes a
-    metric table only with entries in [-2^14, 2^14): METTAB passes (and
-    is read back once, not on every call); a table past the bound, or
-    one changed in place to lie past it, raises."""
-    m = torch.from_numpy(MET.copy())
-    pfano._check_table_range(m)
-    assert pfano._TABLES_CHECKED[id(m)][1] == m._version
-    pfano._check_table_range(m)  # remembered: no second read-back
-    m[0, 0] = 2 ** 14
+    metric table only with entries in [-2^14, 2^14): METTAB passes,
+    checked on the host once a device (``device_mettab`` uploads it
+    once), and a table past the bound, host or torch, raises."""
+    m = pfano.device_mettab("cpu")
+    assert m is pfano.device_mettab(torch.device("cpu"))
+    assert torch.equal(m, torch.from_numpy(MET))
+    t = torch.from_numpy(MET.copy())
+    assert pfano._check_table_range(t) is t
+    t[0, 0] = 2 ** 14
     with pytest.raises(ValueError, match="int16"):
-        pfano._check_table_range(m)
-    m[0, 0] = -2 ** 14
-    pfano._check_table_range(m)
+        pfano._check_table_range(t)
+    t[0, 0] = -2 ** 14
+    pfano._check_table_range(t)
     with pytest.raises(ValueError, match="int16"):
-        pfano._check_table_range(torch.full((2, 256), -2 ** 14 - 1,
-                                            dtype=torch.int32))
+        pfano._check_table_range(np.full((2, 256), -2 ** 14 - 1, np.int32))
+
+
+def _search_counts(sym: np.ndarray, mc: int, delta: int = 60):
+    """(cycles, forward looks, forward moves, backtrack moves) of one
+    lane: native/hostdsp.cpp's search, written out in Python."""
+    m0, m1 = MET[0].astype(int), MET[1].astype(int)
+    s = sym.astype(int)
+    met = [(m0[a] + m0[b], m0[a] + m1[b], m1[a] + m0[b], m1[a] + m1[b])
+           for a, b in zip(s[0::2], s[1::2])]
+
+    def encode(x):
+        return ((bin(x & pfano.POLY1).count("1") & 1) << 1) | \
+            (bin(x & pfano.POLY2).count("1") & 1)
+
+    b0, b1 = met[0][0], met[0][3]
+    cenc, ctm0, ctm1 = (0, b0, b1) if b0 > b1 else (1, b1, b0)
+    cg = cbr = pos = t = looks = moves = back = 0
+    nd = [None] * pfano.N_NODES
+    while True:
+        looks += 1
+        ngamma = cg + (ctm1 if cbr else ctm0)
+        if ngamma >= t:
+            moves += 1
+            if cg < t + delta:
+                while ngamma >= t + delta:
+                    t += delta
+            nd[pos] = (cg, cenc, ctm0, ctm1, cbr)
+            pos += 1
+            enc = (cenc << 1) & 0xFFFFFFFF
+            if pos == pfano.NBITS:
+                return looks + 1, looks, moves, back
+            lsym = encode(enc)
+            b0, b1 = met[pos][lsym], met[pos][3 ^ lsym]
+            cg, cbr = ngamma, 0
+            if pos >= pfano.TAIL:
+                cenc, ctm0 = enc, b0
+            else:
+                ctm0, ctm1 = max(b0, b1), min(b0, b1)
+                cenc = enc + (b0 <= b1)
+        else:
+            while True:
+                back += 1
+                if pos == 0 or nd[pos - 1][0] < t:
+                    t -= delta
+                    if cbr:
+                        cbr, cenc = 0, cenc ^ 1
+                    break
+                pos -= 1
+                cg, cenc, ctm0, ctm1, cbr = nd[pos]
+                if pos < pfano.TAIL and cbr != 1:
+                    cbr, cenc = cbr + 1, cenc ^ 1
+                    break
+        if looks >= mc * pfano.NBITS:
+            return mc * pfano.NBITS + 2, looks, moves, back
+
+
+def test_smoke_step_kinds_count_the_search():
+    """chip_smoke.py's operations bound reads each lane's forward looks
+    and backtrack moves from the kernel's cycles and steps outputs: on
+    the plain version's outputs they equal the counts taken in the
+    search itself, and its fewest looks that moved is at most the looks
+    that did."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    syms, valid = fano_mix(31)
+    for mc in (1, 3):
+        r = plain(syms, mc, valid, steps=True)
+        looks, back, moved = smoke.fano_step_kinds(
+            r.cycles.numpy(), r.steps.numpy(), mc)
+        assert not (looks[~valid].any() or back[~valid].any())
+        for k in np.flatnonzero(valid):
+            cycles, n_looks, n_moves, n_back = _search_counts(syms[k], mc)
+            assert cycles == int(r.cycles[k])
+            assert (looks[k], back[k]) == (n_looks, n_back), (k, mc)
+            assert 0 <= moved[k] <= n_moves
+        assert back.sum() > 0 and moved.sum() > 0
 
 
 @pytest.mark.cuda
@@ -275,7 +355,7 @@ _LAUNCHER = textwrap.dedent("""\
     """)
 # lanes a block the kernel is built and checked with (its source's
 # kLanes is rewritten for each); chosen among them by tools/fano_blocks.py
-LANES_A_BLOCK = (32, 64, 96)
+LANES_A_BLOCK = pfano.LANES_A_BLOCK
 
 
 def _build_emulated(d: Path, lanes: int):

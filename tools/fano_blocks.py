@@ -46,7 +46,7 @@ from rtlsdr_wsprd_tpu_torch.buildlib import BUILD_DIR, nvcc_path  # noqa: E402
 from rtlsdr_wsprd_tpu_torch.config import NBITS  # noqa: E402
 from rtlsdr_wsprd_tpu_torch.ops import fano  # noqa: E402
 
-LANES_A_BLOCK = (32, 64, 96)
+LANES_A_BLOCK = fano.LANES_A_BLOCK
 BUDGETS = (16, 64, 256)
 FIELDS = ("data", "success", "metric", "cycles", "maxnp", "steps")
 SOURCE = fano._SOURCE.read_text()
@@ -151,7 +151,7 @@ def main() -> None:
               f"{rep['dynamic_smem_bytes']} bytes dynamic shared; search "
               f"loop {rep['loop_sass_instructions']} SASS instructions; "
               f"ptxas: {rep['ptxas']}", flush=True)
-    m = torch.from_numpy(fano.METTAB).to(dev)
+    m = fano.device_mettab(dev)
     results = []
     for label, syms, valid in inputs():
         s = torch.from_numpy(syms).to(dev)
