@@ -63,8 +63,28 @@ Phases, in order; any failure exits non-zero before the last line:
             the host result, with windows/s; then one run in the mode
             fec="auto" picks under torch.profiler (host time per
             labelled range, the card's kernel time and busy share).
-            The calibration must have been measured once in the whole
-            run, whichever name of the card each caller used.
+7. daemon   the two daemons and their CLIs, as a user starts them,
+            each path driven with every kernel's count set to 0 just
+            before it and read just after: cli -t (Self-test SUCCESS!);
+            cli -r on an .iq and a .c2 of the front end's lane 0 (the
+            table equal to WsprDecoder's on the same window, K1JT FN20
+            20); the single-dongle daemon (cli -f 20m -i HOST:PORT -n 1
+            --no-align -x) over a loopback rtl_tcp server that serves
+            the raw capture at 10x real time (one window, 0 errors, 0
+            dropped bytes, K1JT FN20 20; every front-end call float32 on
+            polyphase.cu); MultiChannelDaemon over a replay bank of the
+            capture on 8 channels at 8 dials (fec="auto",
+            device_batch=64, frontend="device"; every channel decodes
+            K1JT FN20 20 at its own dial, one wsprnet URL per spot to an
+            injected transport, 0 errors, uint8 stage 1 on polyphase_tc,
+            stage 2 on polyphase.cu, the Fano kernel launched), its
+            channel-windows/s, then the same run once more under
+            torch.profiler (the card's busy share); multicli --synth 2
+            -n 1 -x (2 channel-windows, 2 spots, 0 errors). Then each
+            polyphase kernel against the plain version at every shape
+            the daemon paths launched it with. The calibration must have
+            been measured once in the whole run, whichever name of the
+            card each caller used.
 
 Then a JSON line per kernel, the card's name and power limit, and the
 last line ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits
@@ -255,10 +275,11 @@ def _planes(rng, dt, C, L, offset=0):
     return h[0], h[1]
 
 
-def phase_kernel(dev, name, paths):
+def phase_kernel(dev, name, paths, extras: bool = True):
     """Each kernel vs plain at every shape of ``paths`` (path name ->
-    launches by shape, from phase_frontend and phase_single) and at the
-    extra calls the module docstring lists; returns one row per shape."""
+    launches by shape, from the phases that drive a front end) and, with
+    ``extras``, at the extra calls the module docstring lists; returns
+    one row per shape."""
     from rtlsdr_wsprd_tpu_torch.frontend.decimate import STAGE1, STAGE2
     from rtlsdr_wsprd_tpu_torch.frontend.polyphase import (
         _route,
@@ -282,13 +303,14 @@ def phase_kernel(dev, name, paths):
     for path, shapes in paths.items():
         cases += sorted(((path, st, dt, C, L, n, k, 0) for (st, dt, C, L, n), k
                          in shapes.items()), key=lambda c: (c[1], -c[5]))
-    cases += [("extra", "stage1", "uint8", 8, s1(n), n, 0, 0)
-              for n in (8000, 129, 1)]
-    cases += [("extra", "stage1", "uint8", 8, s1(8000), 8000, 0, 1),
-              ("extra", "stage1", "float32", 8, s1(8000), 8000, 0, 0),
-              ("extra", "stage1", "float32", 8, s1(8000), 8000, 0, 1),
-              ("extra", "stage2", "float32", 8, s2(100), 100, 0, 0),
-              ("extra", "stage2", "float32", 8, s2(3700), 3700, 0, 1)]
+    if extras:
+        cases += [("extra", "stage1", "uint8", 8, s1(n), n, 0, 0)
+                  for n in (8000, 129, 1)]
+        cases += [("extra", "stage1", "uint8", 8, s1(8000), 8000, 0, 1),
+                  ("extra", "stage1", "float32", 8, s1(8000), 8000, 0, 0),
+                  ("extra", "stage1", "float32", 8, s1(8000), 8000, 0, 1),
+                  ("extra", "stage2", "float32", 8, s2(100), 100, 0, 0),
+                  ("extra", "stage2", "float32", 8, s2(3700), 3700, 0, 1)]
     atol = 1e-3
     for path, stage, dt, C, L, n, launched, offset in cases:
         filt = filters[stage]
@@ -381,6 +403,22 @@ def noted_calls():
         decimate.polyphase_decimate = polyphase_decimate
 
 
+def _check_routes(label, launches, shapes, stage1_dtype):
+    """Every stage-1 call of ``stage1_dtype`` went to its kernel (uint8:
+    polyphase_tc, float32: polyphase.cu), every stage-2 call to
+    polyphase.cu, and nothing else was called."""
+    s1 = sum(k for key, k in shapes.items()
+             if key[:2] == ("stage1", stage1_dtype))
+    s2 = sum(k for key, k in shapes.items() if key[0] == "stage2")
+    want = ({"tc": s1, "direct": s2} if stage1_dtype == "uint8"
+            else {"tc": 0, "direct": s1 + s2})
+    got = {"tc": launches["tc"], "direct": launches["direct"]}
+    if (got != want or not s1 or not s2
+            or sum(shapes.values()) != s1 + s2):
+        fail(f"{label}: front-end calls {shapes} do not match launches "
+             f"{got}: want {want}")
+
+
 def synth_capture():
     """The 120 s raw 2.4 Msps capture of one K1JT FN20 20 signal, as
     10 s (I, Q) uint8 chunks."""
@@ -448,17 +486,7 @@ def phase_frontend(dev, chunks, C: int = 8):
         fail(f"raw capture decoded {s.message!r}")
     if abs(s.dt) >= 0.3 or abs((s.freq * 1e6 - 1500.0) - 30.0) >= 0.5:
         fail(f"raw capture spot off: dt {s.dt}, freq {s.freq}")
-    # every uint8 stage-1 call on the tensor-core kernel, every stage-2
-    # call on polyphase.cu, and no other call
-    want = {"tc": sum(k for key, k in shapes.items()
-                      if key[:2] == ("stage1", "uint8")),
-            "direct": sum(k for key, k in shapes.items()
-                          if key[0] == "stage2")}
-    if (launches != want or not all(launches.values())
-            or sum(shapes.values()) != sum(want.values())
-            or any(len(k) != 5 for k in shapes)):
-        fail(f"front-end calls {shapes} do not match launches {launches}: "
-             f"want {want}")
+    _check_routes("front end", launches, shapes, "uint8")
     log(f"[frontend] launches by (stage, dtype, C, L, frames): "
         f"{sorted(shapes.items())}")
     return launches, shapes, bI[0], bQ[0]
@@ -493,12 +521,7 @@ def phase_single(dev, chunks, refI, refQ):
         f"{2e-4 * scale:.3g}); polyphase launches by kernel {launches}")
     if not err <= 2e-4 * scale:
         fail(f"single-lane output differs from batched lane 0 by {err}")
-    # every call, both stages, float32 on polyphase.cu
-    want = {"tc": 0, "direct": sum(shapes.values())}
-    if (launches != want or not want["direct"]
-            or any(k[1] != "float32" for k in shapes)):
-        fail(f"single-lane calls {shapes} do not match launches {launches}: "
-             f"want {want}")
+    _check_routes("single lane", launches, shapes, "float32")
     log(f"[single] launches by (stage, dtype, C, L, frames): "
         f"{sorted(shapes.items())}")
     return launches, shapes
@@ -818,10 +841,11 @@ RANGES = ("stage_a", "stage_b_launch", "stage_b_wait", "fec_host",
           "fec_device", "fec_host_finish", "spots", "subtract")
 
 
-def phase_profile(run, card):
+def phase_profile(run, card, label: str = "profile"):
     """One more decode run under torch.profiler: the host time inside
     each labelled range of decode_channels, the card's total kernel time
-    and its busy share of the run, and the heaviest kernels."""
+    and its busy share of the run, and the heaviest kernels; logged as
+    one JSON line under ``label``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -846,13 +870,339 @@ def phase_profile(run, card):
     span_ms = {e.key: round(dev_us(e) / 1e3, 3) for e in ka
                if e.key in RANGES and e.device_type == cuda}
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
-    log(json.dumps({"profile": {
+    log(json.dumps({label: {
         "card": card, "wall_ms": round(wall * 1e3, 3),
         "kernel_ms": round(kernel_ms, 3),
         "device_busy_share": round(kernel_ms / (wall * 1e3), 4),
         "host_ms_in_range": host_ms, "device_span_ms_of_range": span_ms,
         "top_kernels_ms": [[e.key[:60], round(dev_us(e) / 1e3, 3), e.count]
                            for e in top]}}))
+
+
+# ---- the daemons ------------------------------------------------------------
+
+DAEMON_CALL, DAEMON_LOC = "K1ABC", "FN42"
+# the 8 channels' dials: one WSPR band each (the JAX package's band table)
+DAEMON_BANDS = ("20m", "40m", "30m", "80m", "17m", "15m", "12m", "10m")
+
+
+class LoopbackRtlTcp:
+    """An rtl_tcp server on 127.0.0.1 for one connection: the RTL0
+    header, the client's ``n_commands`` tuning commands (kept in
+    ``commands``), then the capture's interleaved uint8 bytes in 1 MB
+    pieces at most ``bytes_per_s`` (10x real time: the client's 256 MB
+    ring never overflows), then EOF."""
+
+    def __init__(self, chunks, n_commands: int, bytes_per_s: float = 48e6):
+        import socket
+
+        self._chunks = chunks
+        self._n_commands = n_commands
+        self._rate = bytes_per_s
+        self.commands: list[tuple[int, int]] = []
+        self.sent = 0
+        self.error: Exception | None = None
+        self._srv = socket.socket()
+        self._srv.bind(("127.0.0.1", 0))
+        self._srv.listen(1)
+        self._srv.settimeout(60.0)
+        self.port = self._srv.getsockname()[1]
+        self._thread = threading.Thread(target=self._serve, daemon=True,
+                                        name="loopback-rtl_tcp")
+        self._thread.start()
+
+    def _serve(self):
+        import struct
+
+        try:
+            conn, _ = self._srv.accept()
+            with conn:
+                conn.settimeout(60.0)
+                conn.sendall(b"RTL0" + bytes(8))
+                buf = b""
+                while len(buf) < 5 * self._n_commands:
+                    got = conn.recv(4096)
+                    if not got:
+                        raise IOError("client closed during tuning")
+                    buf += got
+                self.commands = [struct.unpack(">BI", buf[k:k + 5])
+                                 for k in range(0, len(buf), 5)]
+                t0 = time.perf_counter()
+                for ri, rq in self._chunks:
+                    b = np.empty(2 * ri.size, np.uint8)
+                    b[0::2], b[1::2] = ri, rq
+                    view = memoryview(b)
+                    for k in range(0, len(view), 1 << 20):
+                        piece = view[k:k + (1 << 20)]
+                        conn.sendall(piece)
+                        self.sent += len(piece)
+                        ahead = self.sent / self._rate - (
+                            time.perf_counter() - t0)
+                        if ahead > 0:
+                            time.sleep(ahead)
+                conn.shutdown(1)
+                while conn.recv(1 << 16):  # until the client closes
+                    pass
+        except Exception as e:  # reported by close()
+            self.error = e
+        finally:
+            self._srv.close()
+
+    def close(self):
+        self._thread.join(timeout=120.0)
+        if self._thread.is_alive():
+            fail("the loopback rtl_tcp server did not finish")
+        if self.error is not None:
+            fail(f"the loopback rtl_tcp server failed: {self.error!r}")
+
+
+def replay_bank(chunks, n_channels: int):
+    """A RawBank that serves one raw capture (uint8 (I, Q) chunks) to
+    every one of ``n_channels`` channels, then ends."""
+    from rtlsdr_wsprd_tpu_torch.runtime.banks import RawBank
+
+    class ReplayBank(RawBank):
+        def __init__(self):
+            self.n_channels = n_channels
+            self._I = np.concatenate([c[0] for c in chunks])
+            self._Q = np.concatenate([c[1] for c in chunks])
+            self._pos = 0
+
+        def read(self, n):
+            sl = slice(self._pos, self._pos + n)
+            ri, rq = self._I[sl], self._Q[sl]
+            self._pos += ri.size
+            return (np.broadcast_to(ri, (n_channels, ri.size)),
+                    np.broadcast_to(rq, (n_channels, rq.size)))
+
+    return ReplayBank()
+
+
+def _captured(fn):
+    """fn() with its standard output caught; returns (result, text). The
+    text is logged too, each line tagged [daemon] >."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn()
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if line.strip():
+            log(f"[daemon] > {line}")
+    return rc, text
+
+
+def _recording(cls, made: list):
+    """A subclass of ``cls`` whose instances are appended to ``made``."""
+    class Recording(cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    return Recording
+
+
+def _spot_lines(text: str) -> list[str]:
+    return [x for x in text.splitlines() if x.startswith("Spot")]
+
+
+@contextlib.contextmanager
+def counted_path(label: str, counts: dict, shapes_by_path: dict):
+    """Drive one daemon path with every kernel's count set to 0 just
+    before it; after it, note its launches by kernel (``counts[label]``)
+    and the front end's calls by shape (``shapes_by_path[label]``)."""
+    from rtlsdr_wsprd_tpu_torch.frontend.polyphase import polyphase_decimate
+    from rtlsdr_wsprd_tpu_torch.ops.fano import batched_fano
+
+    with noted_calls() as shapes:
+        batched_fano.launches = 0
+        yield shapes
+        torch.cuda.synchronize()
+    counts[label] = dict(polyphase_decimate.launches,
+                         fano=batched_fano.launches)
+    shapes_by_path[label] = shapes
+    log(f"[daemon] {label}: launches {counts[label]}; front-end calls by "
+        f"(stage, dtype, C, L, frames) {sorted(shapes.items())}")
+
+
+def phase_daemon(dev, card, chunks, laneI, laneQ):
+    """The daemons and CLIs, as a user starts them: cli -t, cli -r on an
+    .iq and a .c2 of the front end's lane 0, the single-dongle daemon
+    over a loopback rtl_tcp server, the 8-channel MultiChannelDaemon
+    over a replay bank (then once more under torch.profiler), and
+    multicli --synth 2. Returns the launches and the front end's calls
+    by shape of each path, and the numbers for the summary line."""
+    import tempfile
+
+    from rtlsdr_wsprd_tpu_torch import cli, multicli
+    from rtlsdr_wsprd_tpu_torch.config import (
+        BAND_TABLE,
+        SIGNAL_SAMPLES,
+        DecoderOptions,
+    )
+    from rtlsdr_wsprd_tpu_torch.models.decoder import WsprDecoder
+    from rtlsdr_wsprd_tpu_torch.runtime import iqio
+    from rtlsdr_wsprd_tpu_torch.runtime.multidaemon import MultiChannelDaemon
+    from rtlsdr_wsprd_tpu_torch.runtime.reporting import (
+        WSPRNET_BASE,
+        WsprnetReporter,
+        format_table_header,
+        format_table_line,
+    )
+
+    counts: dict[str, dict] = {}
+    shapes_by_path: dict[str, dict] = {}
+    summary: dict = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        # 1. self-test
+        with counted_path("cli -t", counts, shapes_by_path):
+            rc, text = _captured(lambda: cli.main(["-t"]))
+        if rc != 0 or "Self-test SUCCESS!" not in text:
+            fail(f"cli -t returned {rc}")
+
+        # 2. file decodes of lane 0's window: the table equals the port's
+        # WsprDecoder on the same window
+        wi = np.zeros(SIGNAL_SAMPLES, np.float32)
+        wq = np.zeros(SIGNAL_SAMPLES, np.float32)
+        n = min(SIGNAL_SAMPLES, laneI.shape[0])
+        wi[:n], wq[:n] = laneI[:n], laneQ[:n]
+        iqio.write_iq_file(wi, wq, "lane0.iq")
+        iqio.write_c2_file(wi, wq, "lane0.c2", BAND_TABLE["20m"][0],
+                           name="lane0")
+        with counted_path("cli -r", counts, shapes_by_path):
+            for f, freq in (("lane0.iq", 0), ("lane0.c2",
+                                               BAND_TABLE["20m"][0])):
+                rc, text = _captured(lambda: cli.main(["-r", f]))
+                i, q = (iqio.read_iq_file(f) if f.endswith(".iq")
+                        else iqio.read_c2_file(f)[:2])
+                want = WsprDecoder(DecoderOptions(freq=freq),
+                                   device=dev).decode(i, q)
+                lines = text.splitlines()
+                table = [format_table_header()] + [format_table_line(s)
+                                                   for s in want]
+                if rc != 0 or lines[1:] != table:
+                    fail(f"cli -r {f}: rc {rc}, table {lines[1:]} != {table}")
+                if [(s.call, s.loc, s.pwr) for s in want] != [
+                        ("K1JT", "FN20", "20")]:
+                    fail(f"cli -r {f} decoded {[s.message for s in want]}")
+
+        # 3. the single-dongle daemon over rtl_tcp; the CLI's source and
+        # daemon are kept, to read their counters
+        made: list = []
+        real = cli.RtlTcpSource, cli.WsprDaemon
+        cli.RtlTcpSource, cli.WsprDaemon = (_recording(c, made)
+                                            for c in real)
+        dial = BAND_TABLE["20m"][0]
+        srv = LoopbackRtlTcp(chunks, n_commands=5)
+        try:
+            with counted_path("rtl_tcp daemon", counts, shapes_by_path):
+                t0 = time.perf_counter()
+                rc, text = _captured(lambda: cli.main([
+                    "-f", "20m", "-c", DAEMON_CALL, "-l", DAEMON_LOC,
+                    "-i", f"127.0.0.1:{srv.port}", "-n", "1", "--no-align",
+                    "-x"]))
+                wall = time.perf_counter() - t0
+        finally:
+            cli.RtlTcpSource, cli.WsprDaemon = real
+            srv.close()
+        session = [x for x in text.splitlines() if x.startswith("Session:")]
+        source = [m for m in made if isinstance(m, real[0])]
+        daemon = [m for m in made if isinstance(m, real[1])]
+        dropped = source[0].dropped_bytes if source else -1
+        spots = _spot_lines(text)
+        log(f"[daemon] rtl_tcp: {srv.sent} bytes served, commands "
+            f"{srv.commands}, {session}, dropped bytes {dropped}, "
+            f"{wall:.2f} s wall (the stream is paced at 10x real time)")
+        if (rc != 0 or len(made) != 2 or dropped != 0 or not session
+                or "Session: 1 windows, 1 spots, 0 errors" not in session[0]
+                or len(spots) != 1 or not spots[0].endswith(
+                    "   K1JT   FN20 20")):
+            fail(f"rtl_tcp daemon: rc {rc}, session {session}, spots "
+                 f"{spots}, dropped bytes {dropped}")
+        if (0x01, dial + 601_500) not in srv.commands:
+            fail(f"rtl_tcp daemon tuned {srv.commands}")
+        _check_routes("rtl_tcp daemon", counts["rtl_tcp daemon"],
+                      shapes_by_path["rtl_tcp daemon"], "float32")
+        st = daemon[0].stats
+        log(f"[daemon] rtl_tcp daemon: its window decoded in "
+            f"{st.decode_seconds:.4f} s ({card})")
+        summary["rtl_tcp_daemon"] = {
+            "windows": st.windows, "errors": st.errors,
+            "wall_s": round(wall, 3),
+            "window_decode_s": round(st.decode_seconds, 4),
+            "dropped_bytes": dropped}
+
+        # 4. the 8-channel daemon at full width over a replay bank
+        C = len(DAEMON_BANDS)
+        dials = [BAND_TABLE[b][0] for b in DAEMON_BANDS]
+
+        def make_daemon(urls):
+            reps = [WsprnetReporter(DAEMON_CALL, DAEMON_LOC, df,
+                                    transport=urls[k].append)
+                    for k, df in enumerate(dials)]
+            return MultiChannelDaemon(
+                replay_bank(chunks, C),
+                DecoderOptions(freq=dials[0], rcall=DAEMON_CALL,
+                               rloc=DAEMON_LOC),
+                device_batch=64, fec="auto", frontend="device",
+                dialfreqs=dials, reporters=reps, device=dev)
+
+        urls = [[] for _ in range(C)]
+        with counted_path("multi daemon", counts, shapes_by_path):
+            t0 = time.perf_counter()
+            daemon = make_daemon(urls)
+            fec = daemon.describe_fec()
+            out = daemon.run()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        st = daemon.stats
+        log(f"[daemon] multi: FEC {fec}; stats {st}; {secs:.2f} s = "
+            f"{st.channel_windows / secs:.3f} channel-windows/s on the host "
+            f"clock, replay of the raw capture included ({card})")
+        if st.errors or len(out) != 1 or len(out[0]) != C:
+            fail(f"multi daemon: {st.errors} errors, {len(out)} batches")
+        for ch, spots in enumerate(out[0]):
+            hit = [s for s in spots if (s.call, s.loc, s.pwr) == (
+                "K1JT", "FN20", "20") and abs(s.freq * 1e6 - dials[ch]
+                                              - 1530.0) < 0.5]
+            if len(hit) != 1:
+                fail(f"multi daemon channel {ch} (dial {dials[ch]}): spots "
+                     f"{[(s.message, s.freq) for s in spots]}")
+            if len(urls[ch]) != len(spots) or not all(
+                    u.startswith(WSPRNET_BASE + "?function=wspr&")
+                    and f"rqrg={s.freq:.6f}" in u
+                    for u, s in zip(urls[ch], spots)):
+                fail(f"multi daemon channel {ch}: URLs {urls[ch]} for "
+                     f"{len(spots)} spots")
+        _check_routes("multi daemon", counts["multi daemon"],
+                      shapes_by_path["multi daemon"], "uint8")
+        if not counts["multi daemon"]["fano"]:
+            fail("the multi daemon launched the Fano kernel no time")
+        summary["multi_daemon"] = {
+            "channels": C, "channel_windows": st.channel_windows,
+            "spots": st.spots, "errors": st.errors, "wall_s": round(secs, 3),
+            "channel_windows_per_s": round(st.channel_windows / secs, 4),
+            "ingest_s": round(st.ingest_seconds, 3), "fec": fec}
+        del daemon, out
+        phase_profile(lambda: make_daemon([[] for _ in range(C)]).run(),
+                      card, label="multi_daemon_profile")
+
+        # 5. multicli on two synthetic raw channels
+        with counted_path("multicli", counts, shapes_by_path):
+            t0 = time.perf_counter()
+            rc, text = _captured(lambda: multicli.main(
+                ["--synth", "2", "-n", "1", "-x"]))
+            secs = time.perf_counter() - t0
+        if rc != 0 or "2 channel-windows, 2 spot(s), 0 error(s)" not in text:
+            fail(f"multicli --synth 2: rc {rc}")
+        if sum("K1JT   FN20 20" in x for x in _spot_lines(text)) != 2:
+            fail(f"multicli --synth 2 spots {_spot_lines(text)}")
+        _check_routes("multicli", counts["multicli"],
+                      shapes_by_path["multicli"], "uint8")
+        summary["multicli_synth2_wall_s"] = round(secs, 3)
+    log(json.dumps({"daemon": summary}))
+    return counts, shapes_by_path
 
 
 def counting_calibrations() -> list:
@@ -879,7 +1229,6 @@ def main() -> None:
     chunks = synth_capture()
     launches, shapes, refI, refQ = phase_frontend(dev, chunks)
     launches1, shapes1 = phase_single(dev, chunks, refI, refQ)
-    del chunks
     rows = phase_kernel(dev, name, {"batched": shapes, "single": shapes1})
     from rtlsdr_wsprd_tpu_torch.config import DecoderOptions
 
@@ -889,7 +1238,14 @@ def main() -> None:
     fano_rows, cal = phase_fano(dev, name, card, wi, wq, DecoderOptions(),
                                 128)
     dec = phase_decode(dev, card, wi, wq, calls, cal)
-    # cuda, cuda:0 and None (describe) name one card: one measurement
+    del wi, wq
+    daemon_counts, daemon_shapes = phase_daemon(dev, card, chunks, refI,
+                                                 refQ)
+    del chunks
+    rows += phase_kernel(dev, name, {p: s for p, s in daemon_shapes.items()
+                                     if s}, extras=False)
+    # cuda, cuda:0 and None (describe, the CLIs) name one card: one
+    # measurement in the whole run
     log(f"[decode] FEC calibrations measured in this run: {measured}")
     if len(measured) != 1:
         fail(f"the FEC calibration was measured {len(measured)} times: "
@@ -908,9 +1264,12 @@ def main() -> None:
             "route": "cuda",
             "source": f"rtlsdr_wsprd_tpu_torch/frontend/csrc/{src}",
             "replaces": "rtlsdr_wsprd_tpu/frontend/pallas_decimate.py:78",
-            "launches": launches[route] + launches1[route],
+            "launches": (launches[route] + launches1[route]
+                         + sum(c[route] for c in daemon_counts.values())),
             "launches_by_path": {"batched": launches[route],
-                                 "single": launches1[route]},
+                                 "single": launches1[route],
+                                 **{p: c[route] for p, c
+                                    in daemon_counts.items()}},
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
@@ -932,7 +1291,11 @@ def main() -> None:
         "route": "cuda",
         "source": "rtlsdr_wsprd_tpu_torch/ops/csrc/fano.cu",
         "replaces": "rtlsdr_wsprd_tpu/ops/fano.py:91",
-        "launches": dec["hybrid_launches"],
+        "launches": (dec["hybrid_launches"]
+                     + sum(c["fano"] for c in daemon_counts.values())),
+        "launches_by_path": {"decode (4 hybrid runs)": dec["hybrid_launches"],
+                             **{p: c["fano"] for p, c
+                                in daemon_counts.items()}},
         "mismatches": 0,
         "max_abs_err": 0,
         "ms": fano_main["ms"],

@@ -18,11 +18,20 @@ framework-free modules (constants, codecs, filter design, synthesis).
 * ``parallel`` — the staged single-device multi-channel decode and its
                  pipelined stream decode.
 * ``models``   — ``Spot`` and the ``WsprDecoder`` facade.
-* ``native``   — ctypes binding to the host Fano decoder and encoder.
+* ``runtime``  — IQ file IO, synthesis, sample sources (rtl_tcp, file,
+                 synthetic), raw banks, wsprnet reporting, and the two
+                 daemons: ``scheduler.WsprDaemon`` (one dongle) and
+                 ``multidaemon.MultiChannelDaemon`` (many).
+* ``cli``, ``multicli`` — the two command lines
+                 (``python -m rtlsdr_wsprd_tpu_torch.cli`` /
+                 ``.multicli``), flag-compatible with the JAX package's.
+* ``native``   — ctypes binding to the host Fano decoder and encoder,
+                 the uint8 IQ ingest and the host polyphase front end.
 * ``convert``  — the JAX package's constant tables as the port's.
 
 Every entry point takes ``device=None``, meaning the CUDA card, and
-raises without one unless the caller passes ``device="cpu"``.
+raises without one unless the caller passes ``device="cpu"`` (the CLIs:
+``--compute-device cpu``).
 """
 
 __version__ = "0.1.0"

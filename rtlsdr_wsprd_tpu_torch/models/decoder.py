@@ -3,7 +3,9 @@
 ``Spot`` is the reference's struct decoder_results (wsprd/wsprd.h:62-74).
 ``WsprDecoder`` owns the options and the persistent callsign hashtable
 and decodes one window through the staged multi-channel path
-(parallel/multichannel.py) with a batch of one. The JAX package's dense
+(parallel/multichannel.py) with a batch of one; the single-channel
+daemon (runtime/scheduler.py) and the CLI's ``-t``/``-r`` decode
+through it. The JAX package's dense
 per-window ``decode_window`` is its own parity anchor and is not ported:
 the JAX package anchors the port.
 """

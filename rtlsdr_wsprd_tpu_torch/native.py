@@ -1,12 +1,16 @@
 """The port's ctypes binding to the native host runtime.
 
-Binds three pieces of ``native/hostdsp.cpp`` (a file of the repository,
+Binds these pieces of ``native/hostdsp.cpp`` (a file of the repository,
 outside either Python package): the sequential host Fano decoder
 ``wspr_fano_decode`` (the reference's wsprd/fano.c semantics, bit for
-bit), the convolutional encoder ``wspr_conv_encode`` and the float32 ->
-int8/int16 transfer quantizers ``f32_quantize_i8/i16``. The source is compiled with ``g++`` into the
+bit), the convolutional encoder ``wspr_conv_encode``, the float32 ->
+int8/int16 transfer quantizers ``f32_quantize_i8/i16``, the uint8 IQ
+ingest ``u8_deinterleave_center/pairs`` (rtlsdr_wsprd.c:158-182) and the
+host polyphase decimators ``wspr_pp_decimate_f32/u8`` and
+``wspr_fir_decimate_f32`` (the host-placed front end,
+frontend/host_decimate.py). The source is compiled with ``g++`` into the
 port's gitignored build directory at first use (buildlib.py). Without
-``g++`` every call raises: the FEC has no pure-Python stand-in.
+``g++`` every call raises: nothing here has a pure-Python stand-in.
 """
 
 from __future__ import annotations
@@ -62,6 +66,21 @@ def _load():
             f32p, ctypes.c_uint64, ctypes.c_float,
             np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")]
         lib.f32_quantize_i16.restype = None
+        lib.u8_deinterleave_center.argtypes = [u8p, ctypes.c_uint64, f32p,
+                                               f32p]
+        lib.u8_deinterleave_center.restype = None
+        lib.u8_deinterleave_pairs.argtypes = [u8p, ctypes.c_uint64, u8p, u8p]
+        lib.u8_deinterleave_pairs.restype = None
+        i64 = ctypes.c_int64
+        lib.wspr_pp_decimate_f32.argtypes = [
+            f32p, f32p, f32p, f32p, i64, i64, i64, f32p, f32p]
+        lib.wspr_pp_decimate_f32.restype = None
+        lib.wspr_pp_decimate_u8.argtypes = [
+            u8p, u8p, f32p, f32p, i64, i64, i64, f32p, f32p]
+        lib.wspr_pp_decimate_u8.restype = None
+        lib.wspr_fir_decimate_f32.argtypes = [
+            f32p, f32p, f32p, i64, i64, i64, f32p, f32p]
+        lib.wspr_fir_decimate_f32.restype = None
         _lib = lib
         return lib
 
@@ -145,3 +164,75 @@ def quantize_into(x: np.ndarray, out: np.ndarray, scale: float) -> None:
     else:
         raise ValueError(f"unsupported output dtype {out.dtype}")
     fn(x.reshape(-1), x.size, np.float32(scale), out.reshape(-1))
+
+
+def u8_deinterleave_center(raw: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Interleaved uint8 IQ -> planar float32 (I, Q) centred by -128; an
+    odd trailing byte is ignored."""
+    raw = np.ascontiguousarray(raw, np.uint8)
+    n = raw.shape[0] // 2
+    lib = _load()
+    out_i = np.empty(n, np.float32)
+    out_q = np.empty(n, np.float32)
+    lib.u8_deinterleave_center(raw, n, out_i, out_q)
+    return out_i, out_q
+
+
+def u8_deinterleave_pairs(raw: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Interleaved uint8 IQ -> planar uint8 (I, Q), not centred (the
+    stage-1 call centres them); an odd trailing byte is ignored."""
+    raw = np.ascontiguousarray(raw, np.uint8)
+    n = raw.shape[0] // 2
+    lib = _load()
+    out_i = np.empty(n, np.uint8)
+    out_q = np.empty(n, np.uint8)
+    lib.u8_deinterleave_pairs(raw, n, out_i, out_q)
+    return out_i, out_q
+
+
+def _check_decimate_input(xI, xQ, taps: int, R: int, n_frames: int):
+    want = (n_frames * R + taps - R,)
+    if xI.shape != want or xQ.shape != want:
+        raise ValueError(f"inputs must be {want} for {n_frames} frames of "
+                         f"a {taps}-tap filter, got {xI.shape}, {xQ.shape}")
+
+
+def pp_decimate(xI: np.ndarray, xQ: np.ndarray, gr: np.ndarray,
+                gi: np.ndarray, R: int,
+                n_frames: int) -> tuple[np.ndarray, np.ndarray]:
+    """Complex-tap polyphase decimation on the host: one output per R
+    inputs, conv-ordered taps (gr + j gi), uint8 inputs centred by -128
+    inline. The math of the plain version of frontend/polyphase.py."""
+    taps = gr.shape[0]
+    _check_decimate_input(xI, xQ, taps, R, n_frames)
+    lib = _load()
+    gr = np.ascontiguousarray(gr, np.float32)
+    gi = np.ascontiguousarray(gi, np.float32)
+    yI = np.empty(n_frames, np.float32)
+    yQ = np.empty(n_frames, np.float32)
+    if xI.dtype == np.uint8:
+        lib.wspr_pp_decimate_u8(np.ascontiguousarray(xI),
+                                np.ascontiguousarray(xQ, np.uint8),
+                                gr, gi, taps, R, n_frames, yI, yQ)
+    else:
+        lib.wspr_pp_decimate_f32(
+            np.ascontiguousarray(xI, np.float32),
+            np.ascontiguousarray(xQ, np.float32),
+            gr, gi, taps, R, n_frames, yI, yQ)
+    return yI, yQ
+
+
+def fir_decimate(xI: np.ndarray, xQ: np.ndarray, g: np.ndarray, R: int,
+                 n_frames: int) -> tuple[np.ndarray, np.ndarray]:
+    """Real-tap polyphase decimation on the host (both planes share the
+    conv-ordered taps ``g``)."""
+    taps = g.shape[0]
+    _check_decimate_input(xI, xQ, taps, R, n_frames)
+    lib = _load()
+    yI = np.empty(n_frames, np.float32)
+    yQ = np.empty(n_frames, np.float32)
+    lib.wspr_fir_decimate_f32(
+        np.ascontiguousarray(xI, np.float32),
+        np.ascontiguousarray(xQ, np.float32),
+        np.ascontiguousarray(g, np.float32), taps, R, n_frames, yI, yQ)
+    return yI, yQ

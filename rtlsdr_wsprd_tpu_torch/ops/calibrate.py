@@ -211,12 +211,12 @@ def _calibrate(device) -> FecCalibration:
     return cal
 
 
-def describe(mode_arg: str = "auto") -> str:
-    """One-line description of the FEC strategy in effect (resolves and
-    caches the calibration)."""
+def describe(mode_arg: str = "auto", device=None) -> str:
+    """One-line description of the FEC strategy in effect on ``device``
+    (None: the CUDA card); resolves and caches its calibration."""
     if mode_arg in ("host", "hybrid"):
         return f"{mode_arg} (pinned by caller)"
-    cal = get_fec_calibration()
+    cal = get_fec_calibration(device)
     s = f"{cal.mode} (method={cal.method}"
     if cal.mode == "hybrid":
         s += f", device budget={cal.device_maxcycles} cycles"

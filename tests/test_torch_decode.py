@@ -298,6 +298,9 @@ def test_entry_points_default_to_cuda():
     from rtlsdr_wsprd_tpu_torch.device import resolve_device
     from rtlsdr_wsprd_tpu_torch.frontend import decimate as pdec
     from rtlsdr_wsprd_tpu_torch.models.decoder import WsprDecoder
+    from rtlsdr_wsprd_tpu_torch.runtime import multidaemon as pmd
+    from rtlsdr_wsprd_tpu_torch.runtime import scheduler as psched
+    from rtlsdr_wsprd_tpu_torch.runtime import sources as psrc
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None resolves to it")
@@ -313,6 +316,11 @@ def test_entry_points_default_to_cuda():
         lambda: pdec.decimate_window(raw, raw),
         lambda: pdec.StreamingDecimator(),
         lambda: pdec.BatchedStreamingDecimator(2),
+        lambda: psched.WsprDaemon(psrc.SyntheticBasebandSource(),
+                                  DecoderOptions()),
+        lambda: psrc.SyntheticRawSource(),
+        lambda: pmd.MultiChannelDaemon(
+            type("Bank", (), {"n_channels": 1})(), DecoderOptions()),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -323,14 +331,18 @@ def test_entry_points_default_to_cuda():
 def test_import_leaves_jax_out():
     """In a fresh interpreter, importing every module of the port (and
     chip_smoke.py) loads neither jax nor the JAX package; the walk
-    reaches the FEC modules (ops.fano, ops.fano_hybrid, ops.calibrate)."""
+    reaches the FEC modules (ops.fano, ops.fano_hybrid, ops.calibrate),
+    the runtime layer and both CLIs."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import rtlsdr_wsprd_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "new = ('ops.fano', 'ops.fano_hybrid', 'ops.calibrate')\n"
+        "new = ('ops.fano', 'ops.fano_hybrid', 'ops.calibrate', 'cli',\n"
+        "       'multicli', 'frontend.host_decimate', 'runtime.reporting',\n"
+        "       'runtime.sources', 'runtime.banks', 'runtime.scheduler',\n"
+        "       'runtime.multidaemon')\n"
         "assert all(p.__name__ + '.' + m in sys.modules for m in new)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'rtlsdr_wsprd_tpu'))\n"
