@@ -85,6 +85,39 @@ Phases, in order; any failure exits non-zero before the last line:
             the daemon paths launched it with. The calibration must have
             been measured once in the whole run, whichever name of the
             card each caller used.
+8. multidevice
+            decode_channels_multidevice on the 512 windows with devices
+            [cuda:0] and [cuda:0, cuda:0], each equal to decode_channels
+            in every spot field; decode_channels_pipelined_multidevice
+            over 4 batches on two shards of the card, with windows/s
+            (run right after the decode phase); and, inside the daemon
+            phase, the 8-channel daemon again with devices [cuda:0,
+            cuda:0], its spots equal to the default run's.
+9. channelize
+            ChannelizingStreamingDecimator at offset 0 against
+            BatchedStreamingDecimator(1) on the capture (within 1e-5 of
+            scale); the 3-dial wideband capture made on the card (LF
+            136.0 kHz tuned, copies rotated up to MF 474.2 kHz and 160 m
+            1,836.6 kHz, requantised to uint8); multicli --endpoint
+            HOST:PORT:lf --dial mf --dial 160m -n 1 --no-align -x over a
+            loopback rtl_tcp server serving it at 10x real time: each
+            channel decodes K1JT FN20 20 within 0.5 Hz of its dial +
+            1,530 Hz, 0 errors, 0 dropped bytes, one polyphase_tc launch
+            a step for all 3 dials and stage 2 on polyphase.cu.
+10. distributed
+            dryrun_multichip(2, cuda:0) (two gloo ranks on the card, each
+            decoding its slice and running both sharded decimations, rank
+            0 checking them against the unsharded ones); two multicli
+            rank processes (--coordinator, --nprocs 2, --devices all)
+            over two loopback rtl_tcp servers at the 20 m and 40 m dials:
+            each prints its banner and decodes 1 channel-window with one
+            K1JT spot at its own dial, 0 errors, all three kernels
+            launched. Then each polyphase kernel against the plain
+            version at every shape the daemon and channelizer paths
+            launched it with (a bank's shapes on one stream expanded to
+            its K rows, beside the time of K one-filter launches), and
+            every one-filter shape against a bank of C copies of its
+            filter, bit for bit.
 
 Then a JSON line per kernel, the card's name and power limit, and the
 last line ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits
@@ -290,7 +323,7 @@ def phase_kernel(dev, name, paths, extras: bool = True):
     peak_flops, peak_tf32, peak_bw = card_peaks(name)
     rng = np.random.default_rng(1)
     rows = []
-    filters = {"stage1": STAGE1, "stage2": STAGE2}
+    filters = {"stage1": STAGE1, "stage2": STAGE2, **BANKS}
 
     def s1(n):
         return n * STAGE1.R + STAGE1.T - STAGE1.R
@@ -314,15 +347,19 @@ def phase_kernel(dev, name, paths, extras: bool = True):
     atol = 1e-3
     for path, stage, dt, C, L, n, launched, offset in cases:
         filt = filters[stage]
+        bank = isinstance(filt, list)
+        first = filt[0] if bank else filt
         route = _route("cuda", getattr(torch, dt), filt)
         # real taps (stage 2) need 2 FMA per tap and frame, complex 4
-        flop_tap = 8 if np.any(filt.gi) else 4
+        flop_tap = 8 if np.any(first.gi) else 4
         label = (f"{stage} {dt} C={C} x {n} frames, L={L}"
+                 f"{', one stream (row stride 0)' if bank else ''}"
                  f"{f', rows at a {offset}-element offset' if offset else ''}"
                  f" ({launched} launches on the {path} path)")
-        hI, hQ = _planes(rng, dt, C, L, offset)
-        xI = torch.from_numpy(hI).to(dev)[:, offset:]
-        xQ = torch.from_numpy(hQ).to(dev)[:, offset:]
+        # a bank's rows are one stream expanded, as the channelizer's
+        hI, hQ = _planes(rng, dt, 1 if bank else C, L, offset)
+        xI = torch.from_numpy(hI).to(dev)[:, offset:].expand(C, L)
+        xQ = torch.from_numpy(hQ).to(dev)[:, offset:].expand(C, L)
         before = dict(polyphase_decimate.launches)
         kI, kQ = polyphase_decimate(xI, xQ, filt, n)
         if polyphase_decimate.launches[route] != before[route] + 1:
@@ -333,25 +370,42 @@ def phase_kernel(dev, name, paths, extras: bool = True):
         if not (err <= atol):
             fail(f"{route} kernel vs plain, {label}: max |diff| {err} > "
                  f"{atol}")
+        if not bank:
+            # one filter for every row (filter stride 0) is bit for bit
+            # the bank whose rows all hold that filter
+            sI, sQ = polyphase_decimate(xI, xQ, [filt] * C, n)
+            if not (torch.equal(sI, kI) and torch.equal(sQ, kQ)):
+                fail(f"{label}: the stride-0 call differs from the bank of "
+                     f"{C} copies of its filter")
 
         # yardstick: one conv1d over the centred float planes, weight
-        # (2, 2, T) = [[gr, -gi], [gi, gr]], stride R
-        g = torch.from_numpy(np.stack([
-            np.stack([filt.gr, -filt.gi]), np.stack([filt.gi, filt.gr])
-        ])).to(dev)
-        xf = torch.stack([xI, xQ], dim=1).to(torch.float32)
+        # (2K, 2, T), [[gr, -gi], [gi, gr]] of each of the K filters (1
+        # for a one-filter call over C rows), stride R
+        g = torch.from_numpy(np.concatenate([np.stack([
+            np.stack([f.gr, -f.gi]), np.stack([f.gi, f.gr])])
+            for f in (filt if bank else [filt])])).to(dev)
+        xs = (xI[:1], xQ[:1]) if bank else (xI, xQ)
+        xf = torch.stack(xs, dim=1).to(torch.float32)
         if dt == "uint8":
             xf -= 128.0
-        lib = torch.nn.functional.conv1d(xf, g, stride=filt.R)[..., :n]
+        lib = torch.nn.functional.conv1d(xf, g, stride=first.R)[..., :n]
+        lib = lib.reshape(C, 2, n) if bank else lib
         lib_err = max(float((lib[:, 0] - pI).abs().max()),
                       float((lib[:, 1] - pQ).abs().max()))
 
         ms = cuda_ms(lambda: polyphase_decimate(xI, xQ, filt, n))
         plain_ms = cuda_ms(lambda: polyphase_plain(xI, xQ, filt, n))
         lib_ms = cuda_ms(lambda: torch.nn.functional.conv1d(
-            xf, g, stride=filt.R))
-        nbytes = 2 * C * L * hI.itemsize + 2 * C * n * 4
-        flops = flop_tap * filt.T * C * n
+            xf, g, stride=first.R))
+        separate_ms = None
+        if bank:
+            # the same work as K one-filter launches over the stream
+            separate_ms = cuda_ms(lambda: [polyphase_decimate(
+                xI[0], xQ[0], f, n) for f in filt])
+        # each input read once: a bank's one stream, else C rows
+        nbytes = (2 * (1 if bank else C) * L * hI.itemsize
+                  + 2 * C * n * 4)
+        flops = flop_tap * first.T * C * n
         bytes_ms = nbytes / peak_bw * 1e3
         fp32_core_ms = flops / peak_flops * 1e3
         # the tensor-core kernel does its work as two TF32 products
@@ -360,6 +414,7 @@ def phase_kernel(dev, name, paths, extras: bool = True):
                    dtype=dt, C=C,
                    L=L, frames=n, row_offset=offset, launches=launched,
                    max_abs_err=err, atol=atol, ms=ms, plain_ms=plain_ms,
+                   separate_launches_ms=separate_ms,
                    library_ms=lib_ms, library_max_abs_err=lib_err,
                    bytes_ms=bytes_ms, fp32_core_ms=fp32_core_ms,
                    bound_ms=max(bytes_ms, t_ops),
@@ -370,37 +425,55 @@ def phase_kernel(dev, name, paths, extras: bool = True):
             f"{atol}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, conv1d "
             f"{lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}; bytes {bytes_ms:.4f}, fp32 cores "
-            f"{fp32_core_ms:.4f})")
+            f"{fp32_core_ms:.4f})"
+            f"{f'; {C} one-filter launches {separate_ms:.4f} ms' if bank else ''}")
         del xI, xQ, xf, lib
     torch.cuda.empty_cache()
     return rows
 
 
+# the filter banks the front ends launched, by the stage name
+# noted_calls gives them ("stage1 bank of K")
+BANKS: dict = {}
+
+
+def _stage_of(filt) -> str:
+    from rtlsdr_wsprd_tpu_torch.frontend import decimate
+
+    if isinstance(filt, (list, tuple)):
+        name = f"stage1 bank of {len(filt)}"
+        BANKS[name] = list(filt)
+        return name
+    return "stage1" if filt is decimate.STAGE1 else "stage2"
+
+
 @contextlib.contextmanager
 def noted_calls():
     """Set every kernel's launch count to 0 and note the (stage, input
-    dtype, C, L, frames) of every polyphase call the front end makes
-    inside the block, counted by shape (the wrapper itself, which counts
-    the launches, runs unchanged underneath)."""
-    from rtlsdr_wsprd_tpu_torch.frontend import decimate
+    dtype, C, L, frames) of every polyphase call the front ends (the
+    batched and single-lane decimators and the channelizer) make inside
+    the block, counted by shape (the wrapper itself, which counts the
+    launches, runs unchanged underneath)."""
+    from rtlsdr_wsprd_tpu_torch.frontend import channelize, decimate
     from rtlsdr_wsprd_tpu_torch.frontend.polyphase import polyphase_decimate
 
     shapes: dict[tuple, int] = {}
 
     def noting(xI, xQ, filt, n_frames):
-        key = ("stage1" if filt is decimate.STAGE1 else "stage2",
-               str(xI.dtype).removeprefix("torch."),
+        key = (_stage_of(filt), str(xI.dtype).removeprefix("torch."),
                *(xI.shape if xI.dim() == 2 else (1, *xI.shape)), n_frames)
         shapes[key] = shapes.get(key, 0) + 1
         return polyphase_decimate(xI, xQ, filt, n_frames)
 
     decimate.polyphase_decimate = noting
+    channelize.polyphase_decimate = noting
     for route in polyphase_decimate.launches:
         polyphase_decimate.launches[route] = 0
     try:
         yield shapes
     finally:
         decimate.polyphase_decimate = polyphase_decimate
+        channelize.polyphase_decimate = polyphase_decimate
 
 
 def _check_routes(label, launches, shapes, stage1_dtype):
@@ -834,7 +907,7 @@ def phase_decode(dev, card, wi, wq, calls, cal, DB: int = 128):
         f"decode windows/s ({card}); every batch equals the host decode")
     phase_profile(lambda: run("auto"), card)
     return dict(host=host_rate, hybrid=hybrid_rate, pipelined=pipe_rate,
-                hybrid_launches=launches)
+                hybrid_launches=launches, host_spots=host)
 
 
 RANGES = ("stage_a", "stage_b_launch", "stage_b_wait", "fec_host",
@@ -994,12 +1067,19 @@ def _captured(fn):
 
 
 def _recording(cls, made: list):
-    """A subclass of ``cls`` whose instances are appended to ``made``."""
+    """A subclass of ``cls`` whose instances are appended to ``made``;
+    where ``cls`` has a ``run``, its result is kept as ``result``."""
     class Recording(cls):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             made.append(self)
 
+    if hasattr(cls, "run"):
+        def run(self, *a, **kw):
+            self.result = cls.run(self, *a, **kw)
+            return self.result
+
+        Recording.run = run
     return Recording
 
 
@@ -1008,10 +1088,11 @@ def _spot_lines(text: str) -> list[str]:
 
 
 @contextlib.contextmanager
-def counted_path(label: str, counts: dict, shapes_by_path: dict):
-    """Drive one daemon path with every kernel's count set to 0 just
-    before it; after it, note its launches by kernel (``counts[label]``)
-    and the front end's calls by shape (``shapes_by_path[label]``)."""
+def counted_path(label: str, counts: dict, shapes_by_path: dict,
+                 phase: str = "daemon"):
+    """Drive one path with every kernel's count set to 0 just before it;
+    after it, note its launches by kernel (``counts[label]``) and the
+    front end's calls by shape (``shapes_by_path[label]``)."""
     from rtlsdr_wsprd_tpu_torch.frontend.polyphase import polyphase_decimate
     from rtlsdr_wsprd_tpu_torch.ops.fano import batched_fano
 
@@ -1022,7 +1103,7 @@ def counted_path(label: str, counts: dict, shapes_by_path: dict):
     counts[label] = dict(polyphase_decimate.launches,
                          fano=batched_fano.launches)
     shapes_by_path[label] = shapes
-    log(f"[daemon] {label}: launches {counts[label]}; front-end calls by "
+    log(f"[{phase}] {label}: launches {counts[label]}; front-end calls by "
         f"(stage, dtype, C, L, frames) {sorted(shapes.items())}")
 
 
@@ -1137,7 +1218,7 @@ def phase_daemon(dev, card, chunks, laneI, laneQ):
         C = len(DAEMON_BANDS)
         dials = [BAND_TABLE[b][0] for b in DAEMON_BANDS]
 
-        def make_daemon(urls):
+        def make_daemon(urls, devices="default"):
             reps = [WsprnetReporter(DAEMON_CALL, DAEMON_LOC, df,
                                     transport=urls[k].append)
                     for k, df in enumerate(dials)]
@@ -1146,7 +1227,8 @@ def phase_daemon(dev, card, chunks, laneI, laneQ):
                 DecoderOptions(freq=dials[0], rcall=DAEMON_CALL,
                                rloc=DAEMON_LOC),
                 device_batch=64, fec="auto", frontend="device",
-                dialfreqs=dials, reporters=reps, device=dev)
+                dialfreqs=dials, reporters=reps, device=dev,
+                devices=devices)
 
         urls = [[] for _ in range(C)]
         with counted_path("multi daemon", counts, shapes_by_path):
@@ -1184,7 +1266,37 @@ def phase_daemon(dev, card, chunks, laneI, laneQ):
             "spots": st.spots, "errors": st.errors, "wall_s": round(secs, 3),
             "channel_windows_per_s": round(st.channel_windows / secs, 4),
             "ingest_s": round(st.ingest_seconds, 3), "fec": fec}
-        del daemon, out
+
+        # the same daemon decoding on two shards of the one card
+        # (devices=[cuda:0, cuda:0]): the spots of the default run
+        with counted_path("multidevice daemon", counts, shapes_by_path,
+                          phase="multidevice"):
+            t0 = time.perf_counter()
+            two = make_daemon([[] for _ in range(C)],
+                              devices=["cuda:0", "cuda:0"])
+            out2 = two.run()
+            torch.cuda.synchronize()
+            secs2 = time.perf_counter() - t0
+        if (two.stats.errors or len(out2) != 1
+                or _mismatches(out2[0], out[0])):
+            fail(f"multidevice daemon: {two.stats.errors} errors, spots "
+                 f"{_fields(out2[0]) if out2 else None} != the default "
+                 f"run's {_fields(out[0])}")
+        _check_routes("multidevice daemon", counts["multidevice daemon"],
+                      shapes_by_path["multidevice daemon"], "uint8")
+        if not counts["multidevice daemon"]["fano"]:
+            fail("the multidevice daemon launched the Fano kernel no time")
+        log(f"[multidevice] 8-channel daemon on 2 shards of cuda:0: "
+            f"{two.stats.channel_windows} channel-windows in {secs2:.2f} s "
+            f"= {two.stats.channel_windows / secs2:.4f} channel-windows/s "
+            f"(host clock, replay included; {card}); spots "
+            f"{'equal to' if _fields(out2[0]) == _fields(out[0]) else 'within float rounding of'}"
+            f" the default run's")
+        summary["multidevice_daemon"] = {
+            "shards": 2, "channel_windows": two.stats.channel_windows,
+            "wall_s": round(secs2, 3), "channel_windows_per_s": round(
+                two.stats.channel_windows / secs2, 4)}
+        del daemon, out, two, out2
         phase_profile(lambda: make_daemon([[] for _ in range(C)]).run(),
                       card, label="multi_daemon_profile")
 
@@ -1202,6 +1314,391 @@ def phase_daemon(dev, card, chunks, laneI, laneQ):
                       shapes_by_path["multicli"], "uint8")
         summary["multicli_synth2_wall_s"] = round(secs, 3)
     log(json.dumps({"daemon": summary}))
+    return counts, shapes_by_path
+
+
+def _fields(spots):
+    """Every field of per-channel spot lists (the equality the decode
+    paths are held to)."""
+    return [[(x.message, x.jitter, x.cycles, x.freq, x.snr, x.dt, x.sync,
+              x.drift) for x in ch] for ch in spots]
+
+
+def _mismatches(got, want) -> list[int]:
+    """Channels whose spot lists differ beyond float rounding: message,
+    jitter, cycles and drift equal, freq within 1e-7 MHz, dt within one
+    sample (1/375 s), snr within 0.01 dB, sync within 1e-4 (sums over
+    lane buckets of other sizes round otherwise on the card)."""
+    bad = []
+    for b, (g, w) in enumerate(zip(got, want)):
+        if len(g) != len(w) or any(
+                (x.message, x.jitter, x.cycles, x.drift)
+                != (y.message, y.jitter, y.cycles, y.drift)
+                or abs(x.freq - y.freq) > 1e-7 or abs(x.dt - y.dt) > 1 / 375
+                or abs(x.snr - y.snr) > 0.01 or abs(x.sync - y.sync) > 1e-4
+                for x, y in zip(g, w)):
+            bad.append(b)
+    return bad + list(range(min(len(got), len(want)),
+                            max(len(got), len(want))))
+
+
+# ---- the channelizer, the multi-device decode, the multi-host runtime ------
+
+# one dongle in direct sampling, tuned to LF, decoding LF, MF and 160 m
+# from its one 2.4 Msps stream (the channelizer's own deployment)
+WIDE_BANDS = ("lf", "mf", "160m")
+
+
+def wideband_capture(dev, chunks):
+    """The 3-dial capture, made on the card from the 120 s capture: the
+    centred capture plus copies rotated up by each other dial's distance
+    from LF (the signal then sits at every dial + 1,530 Hz), the phase
+    continuous across chunks, requantised to uint8. Returns the dials
+    and the chunks."""
+    from rtlsdr_wsprd_tpu_torch.config import BAND_TABLE
+    from rtlsdr_wsprd_tpu_torch.frontend.channelize import FS
+
+    dials = [BAND_TABLE[b][0] for b in WIDE_BANDS]
+    out = []
+    n0 = 0
+    for ri, rq in chunks:
+        zi = torch.from_numpy(ri).to(dev).to(torch.float32) - 128.0
+        zq = torch.from_numpy(rq).to(dev).to(torch.float32) - 128.0
+        n = torch.arange(n0, n0 + ri.size, device=dev, dtype=torch.int64)
+        ai, aq = zi.clone(), zq.clone()
+        for d in dials[1:]:
+            # (f n) mod fs is exact in int64, and below 2^24
+            ph = ((n * (d - dials[0])) % FS).to(torch.float32) * (
+                2.0 * np.pi / FS)
+            c, s = torch.cos(ph), torch.sin(ph)
+            ai += zi * c - zq * s
+            aq += zi * s + zq * c
+        out.append(tuple(
+            torch.clamp(torch.round(a) + 128.0, 0, 255).to(torch.uint8)
+            .cpu().numpy() for a in (ai, aq)))
+        n0 += ri.size
+    torch.cuda.synchronize()
+    return dials, out
+
+
+def phase_channelize(dev, card, chunks):
+    """The wideband channelizer: a zero-offset dial against the plain
+    batched front end, then multicli --dial over a loopback rtl_tcp
+    server serving the 3-dial capture. Returns the launches and the
+    front end's calls by shape of each path, and the summary."""
+    import tempfile
+
+    from rtlsdr_wsprd_tpu_torch import multicli
+    from rtlsdr_wsprd_tpu_torch.frontend.channelize import (
+        ChannelizingStreamingDecimator,
+    )
+    from rtlsdr_wsprd_tpu_torch.frontend.decimate import (
+        BatchedStreamingDecimator,
+    )
+    from rtlsdr_wsprd_tpu_torch.runtime import banks
+
+    counts: dict[str, dict] = {}
+    shapes_by_path: dict[str, dict] = {}
+    summary: dict = {"card": card}
+
+    # 1. the tuned dial's channel is the plain front end
+    def run(fe):
+        outs = [fe.push(ri[None], rq[None]) for ri, rq in chunks]
+        outs.append(fe.flush())
+        return (np.concatenate([o[0] for o in outs], axis=1),
+                np.concatenate([o[1] for o in outs], axis=1))
+
+    with counted_path("channelizer, zero offset", counts, shapes_by_path,
+                      phase="channelize"):
+        t0 = time.perf_counter()
+        cI, cQ = run(ChannelizingStreamingDecimator([0.0], device=dev))
+        secs = time.perf_counter() - t0
+    pI, pQ = run(BatchedStreamingDecimator(1, device=dev))
+    scale = float(np.abs(pI).max())
+    err = float(max(np.abs(cI - pI).max(), np.abs(cQ - pQ).max())) if (
+        cI.shape == pI.shape) else float("inf")
+    log(f"[channelize] zero-offset dial vs BatchedStreamingDecimator(1): "
+        f"max |diff| {err:.3g} (scale {scale:.4g}, tolerance "
+        f"{1e-5 * scale:.3g}); {sum(c[0].size for c in chunks) / 2.4e6:.0f} "
+        f"s of capture in {secs:.2f} s")
+    if not err <= 1e-5 * scale:
+        fail(f"the zero-offset channelizer differs from the plain front end "
+             f"by {err}")
+
+    # 2. the 3-dial capture through the channelizer alone (unpaced)
+    t0 = time.perf_counter()
+    dials, wide = wideband_capture(dev, chunks)
+    log(f"[channelize] made the {len(dials)}-dial capture (dials {dials}) "
+        f"on the card in {time.perf_counter() - t0:.2f} s")
+    offsets = [dials[0] - d for d in dials]
+    with counted_path(f"channelizer, {len(dials)} dials", counts,
+                      shapes_by_path, phase="channelize"):
+        t0 = time.perf_counter()
+        wI, wQ = run(ChannelizingStreamingDecimator(offsets, device=dev))
+        secs = time.perf_counter() - t0
+    if wI.shape[0] != len(dials) or wI.shape[1] != pI.shape[1] or not (
+            np.isfinite(wI).all() and np.isfinite(wQ).all()):
+        fail(f"the {len(dials)}-dial channelizer gave {wI.shape}")
+    rate = len(dials) * sum(c[0].size for c in wide) / 2.4e6 / secs
+    log(f"[channelize] {len(dials)} dials x 120 s raw in {secs:.2f} s = "
+        f"{rate:.1f} channel-s per s in 10 s pushes ({card})")
+    summary["channel_s_per_s_3_dials"] = round(rate, 1)
+
+    # 3. multicli --dial: one rtl_tcp dongle at LF, three dials
+    made: list = []
+    real = multicli.MultiChannelDaemon, multicli.RtlTcpBank
+    multicli.MultiChannelDaemon, multicli.RtlTcpBank = (
+        _recording(c, made) for c in real)
+    # sample rate, direct sampling, gain mode, gain, frequency
+    srv = LoopbackRtlTcp(wide, n_commands=5)
+    try:
+        with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp), \
+                counted_path("multicli --dial", counts, shapes_by_path,
+                             phase="channelize"):
+            t0 = time.perf_counter()
+            rc, text = _captured(lambda: multicli.main([
+                "--endpoint", f"127.0.0.1:{srv.port}:{WIDE_BANDS[0]}",
+                *[a for b in WIDE_BANDS[1:] for a in ("--dial", b)],
+                "-n", "1", "--no-align", "-x"]))
+            wall = time.perf_counter() - t0
+    finally:
+        multicli.MultiChannelDaemon, multicli.RtlTcpBank = real
+        srv.close()
+    daemon = [m for m in made if isinstance(m, real[0])]
+    bank = [m for m in made if isinstance(m, banks.RawBank)]
+    dropped = bank[0].dropped_bytes if bank else [-1]
+    if rc != 0 or len(daemon) != 1 or dropped != [0]:
+        fail(f"multicli --dial: rc {rc}, {len(daemon)} daemons, dropped "
+             f"bytes {dropped}")
+    st, out = daemon[0].stats, daemon[0].result
+    if (st.errors or len(out) != 1 or len(out[0]) != len(dials)
+            or "3 channel-windows, 3 spot(s), 0 error(s)" not in text):
+        fail(f"multicli --dial: {st.errors} errors, {len(out)} batches")
+    for ch, spots in enumerate(out[0]):
+        hit = [x for x in spots if (x.call, x.loc, x.pwr) == (
+            "K1JT", "FN20", "20") and abs(x.freq * 1e6 - dials[ch] - 1530.0)
+            < 0.5]
+        if len(hit) != 1:
+            fail(f"multicli --dial channel {ch} (dial {dials[ch]}): spots "
+                 f"{[(x.message, x.freq) for x in spots]}")
+    if (0x01, dials[0] + 601_500) not in srv.commands or (
+            0x09, 2) not in srv.commands:
+        fail(f"multicli --dial tuned {srv.commands}")
+    c, sh = counts["multicli --dial"], shapes_by_path["multicli --dial"]
+    bank_name = f"stage1 bank of {len(dials)}"
+    s1 = sum(k for key, k in sh.items()
+             if key[:3] == (bank_name, "uint8", len(dials)))
+    s2 = sum(k for key, k in sh.items()
+             if key[:3] == ("stage2", "float32", len(dials)))
+    if (c["tc"] != s1 or c["direct"] != s2 or not s1 or not s2
+            or sum(sh.values()) != s1 + s2 or not c["fano"]):
+        fail(f"multicli --dial: front-end calls {sh} do not match launches "
+             f"{c}: want one tc launch for all {len(dials)} dials a step, "
+             f"stage 2 on direct, the Fano kernel launched")
+    log(f"[channelize] multicli --dial: {st.channel_windows} "
+        f"channel-windows, {st.spots} spots, 0 errors, 0 dropped bytes, "
+        f"{wall:.2f} s wall (the stream is paced at 10x real time), "
+        f"{st.ingest_seconds:.2f} s of ingest; spots "
+        f"{[(x.message, round(x.freq * 1e6 - d, 3)) for d, ch in zip(dials, out[0]) for x in ch]} "
+        f"(Hz above each dial; {card})")
+    summary["multicli_dial"] = {
+        "dials": dials, "channel_windows": st.channel_windows,
+        "spots": st.spots, "errors": st.errors, "wall_s": round(wall, 3),
+        "ingest_s": round(st.ingest_seconds, 3),
+        "window_decode_s": round(wall - st.ingest_seconds, 3)}
+    log(json.dumps({"channelize": summary}))
+    return counts, shapes_by_path
+
+
+def phase_multidevice(dev, card, wi, wq, host_spots, DB: int = 128):
+    """decode_channels_multidevice on one and on two shards of the card,
+    each equal in every spot field to decode_channels on the same
+    windows (one shard: the whole batch, host mode's spots, which
+    hybrid's equal; two shards: decode_channels on each half), and the
+    two-shard run within float rounding of the whole batch's decode
+    (_mismatches); then the pipelined multi-device decode over 4
+    batches on two shards, held the same way. Returns the launches of
+    each path and the summary."""
+    from rtlsdr_wsprd_tpu_torch.config import DecoderOptions
+    from rtlsdr_wsprd_tpu_torch.parallel.multichannel import (
+        decode_channels,
+        decode_channels_multidevice,
+        decode_channels_pipelined_multidevice,
+    )
+
+    B = wi.shape[0]
+    opts = DecoderOptions()
+    whole = _fields(host_spots)
+    # two shards decode each half as decode_channels does alone: its lane
+    # buckets hold one half's candidates, so its sums can round
+    # otherwise than the whole batch's
+    halves = [ch for s0, s1 in ((0, B // 2), (B // 2, B))
+              for ch in decode_channels(wi[s0:s1], wq[s0:s1], opts,
+                                        device_batch=DB, device=dev)]
+    far = _mismatches(halves, host_spots)
+    n_float = sum(_fields([a]) != _fields([b])
+                  for a, b in zip(halves, host_spots))
+    log(f"[multidevice] decode_channels on each half vs the whole batch: "
+        f"{n_float} windows differ in a float field, {len(far)} beyond "
+        f"rounding")
+    if far:
+        fail(f"decode_channels on each half differs from the whole batch "
+             f"beyond float rounding in windows {far[:10]}")
+    halves = _fields(halves)
+    counts: dict[str, dict] = {}
+    shapes_by_path: dict[str, dict] = {}
+    summary: dict = {"card": card}
+    for devs, want in ((["cuda:0"], whole), (["cuda:0", "cuda:0"], halves)):
+        label = f"decode_channels_multidevice x{len(devs)}"
+        with counted_path(label, counts, shapes_by_path, phase="multidevice"):
+            t0 = time.perf_counter()
+            got = decode_channels_multidevice(wi, wq, opts, devices=devs,
+                                              device_batch=DB)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        bad = [b for b in range(B) if _fields(got[b:b + 1]) != want[b:b + 1]]
+        if bad:
+            fail(f"{label}: spots differ from decode_channels in windows "
+                 f"{bad[:10]}: {_fields(got[bad[0]:bad[0] + 1])} != "
+                 f"{want[bad[0]:bad[0] + 1]}")
+        if not counts[label]["fano"]:
+            fail(f"{label} launched the Fano kernel no time")
+        log(f"[multidevice] {label} on {devs}: {B} windows in {secs:.2f} s "
+            f"= {B / secs:.1f} decode windows/s ({card}); every spot field "
+            f"equals decode_channels on {'the batch' if len(devs) == 1 else 'each shard'}")
+        summary[label] = round(B / secs, 1)
+
+    n_batches = 4
+    label = "pipelined multidevice x2"
+    with counted_path(label, counts, shapes_by_path, phase="multidevice"):
+        t0 = time.perf_counter()
+        out = list(decode_channels_pipelined_multidevice(
+            [(wi, wq)] * n_batches, opts, depth=2, device_batch=DB,
+            devices=["cuda:0", "cuda:0"]))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    if len(out) != n_batches or any(_fields(o) != halves for o in out):
+        fail(f"{label}: a batch differs from decode_channels on its shards")
+    if not counts[label]["fano"]:
+        fail(f"{label} launched the Fano kernel no time")
+    rate = n_batches * B / secs
+    log(f"[multidevice] decode_channels_pipelined_multidevice depth 2 on 2 "
+        f"shards of cuda:0, {n_batches} x {B} windows: {secs:.2f} s = "
+        f"{rate:.1f} decode windows/s ({card}); every batch equals "
+        f"decode_channels on its shards")
+    summary["pipelined_multidevice_x2"] = round(rate, 1)
+    log(json.dumps({"multidevice": summary}))
+    return counts, summary
+
+
+# the rank processes of the 2-rank multicli run: multicli.main as a user
+# starts it, its front-end calls noted by shape, then the process's
+# kernel launches and those shapes as one line each
+RANK_MAIN = (
+    "import json, sys\n"
+    "import chip_smoke\n"
+    "from rtlsdr_wsprd_tpu_torch import multicli\n"
+    "from rtlsdr_wsprd_tpu_torch.parallel.dryrun import launch_counts\n"
+    "with chip_smoke.noted_calls() as shapes:\n"
+    "    rc = multicli.main(sys.argv[1:])\n"
+    "print('LAUNCHES ' + json.dumps(launch_counts()), flush=True)\n"
+    "print('SHAPES ' + json.dumps(sorted(shapes.items())), flush=True)\n"
+    "sys.exit(rc)\n")
+
+
+def phase_distributed(card, chunks):
+    """The multi-host runtime on one card: dryrun_multichip(2, cuda:0),
+    then two multicli rank processes (one gloo job, both ranks on
+    cuda:0) over two loopback rtl_tcp servers (20 m and 40 m dials,
+    the 120 s capture). Returns the launches of each path (each rank's
+    summed), the front end's calls by shape of each path (the dry run's
+    sharded calls, one a rank at each stage, from its constants) and the
+    summary."""
+    import socket
+
+    from rtlsdr_wsprd_tpu_torch.config import BAND_TABLE
+    from rtlsdr_wsprd_tpu_torch.parallel import dryrun
+    from rtlsdr_wsprd_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    counts: dict[str, dict] = {}
+    f1, f2 = dryrun.FRAMES1, dryrun.FRAMES2
+    shapes_by_path: dict[str, dict] = {"dryrun_multichip": {
+        ("stage1", "float32", 1, f1 * 80 + 560, f1): 2,
+        ("stage2", "float32", 1, f2 * 80 + 2320, f2): 2}}
+    summary: dict = {"card": card}
+    t0 = time.perf_counter()
+    ranks = dryrun_multichip(2, "cuda:0")
+    secs = time.perf_counter() - t0
+    log(f"[distributed] dryrun_multichip(2, cuda:0): every check passed in "
+        f"{secs:.2f} s (2 process starts included); launches by rank "
+        f"{ranks}")
+    if any(not r["direct"] or not r["fano"] for r in ranks):
+        fail(f"a dry-run rank launched polyphase.cu or the Fano kernel no "
+             f"time: {ranks}")
+    counts["dryrun_multichip"] = {k: sum(r[k] for r in ranks)
+                                  for k in ranks[0]}
+    summary["dryrun_s"] = round(secs, 3)
+
+    bands = ("20m", "40m")
+    dials = [BAND_TABLE[b][0] for b in bands]
+    # sample rate, gain mode, gain, frequency
+    srvs = [LoopbackRtlTcp(chunks, n_commands=4) for _ in bands]
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    eps = [a for srv, b in zip(srvs, bands)
+           for a in ("--endpoint", f"127.0.0.1:{srv.port}:{b}")]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RANK_MAIN, *eps, "--coordinator",
+         f"127.0.0.1:{port}", "--nprocs", "2", "--rank", str(k),
+         "--devices", "all", "-n", "1", "--no-align", "-x"],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for k in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=400)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for srv in srvs:
+            srv.close()
+    wall = time.perf_counter() - t0
+    launches = []
+    for k, (p, text) in enumerate(zip(procs, outs)):
+        for line in text.splitlines():
+            if line.strip():
+                log(f"[distributed] rank {k} > {line}")
+        spots = _spot_lines(text)
+        lines = [x for x in text.splitlines() if x.startswith("LAUNCHES ")]
+        if (p.returncode != 0 or not lines
+                or f"Distributed: rank {k}/2 serving channels [{k}, {k + 1}) "
+                "on 1 local device(s), 2 global." not in text
+                or f"[rank {k}] Processed 1 window batch(es), 1 "
+                "channel-windows, 1 spot(s), 0 error(s)." not in text
+                or "WARNING" in text or len(spots) != 1
+                or not spots[0].endswith("   K1JT   FN20 20")
+                or f" {(dials[k] + 1530) / 1e6:10.6f} " not in spots[0]):
+            fail(f"multicli rank {k}: rc {p.returncode}")
+        launches.append(json.loads(lines[-1].split(" ", 1)[1]))
+        shapes = [x for x in text.splitlines() if x.startswith("SHAPES ")]
+        for key, n in json.loads(shapes[-1].split(" ", 1)[1]):
+            by = shapes_by_path.setdefault("multicli 2 ranks", {})
+            by[tuple(key)] = by.get(tuple(key), 0) + n
+    if any(not r["tc"] or not r["direct"] or not r["fano"]
+           for r in launches):
+        fail(f"a multicli rank did not launch all three kernels: {launches}")
+    counts["multicli 2 ranks"] = {k: sum(r[k] for r in launches)
+                                  for k in launches[0]}
+    log(f"[distributed] multicli, 2 ranks on cuda:0: 1 channel-window and "
+        f"1 K1JT spot at its own dial each, 0 errors, {wall:.2f} s wall "
+        f"(the streams are paced at 10x real time); launches by rank "
+        f"{launches} ({card})")
+    summary["multicli_2_ranks_wall_s"] = round(wall, 3)
+    log(json.dumps({"distributed": summary}))
     return counts, shapes_by_path
 
 
@@ -1238,12 +1735,18 @@ def main() -> None:
     fano_rows, cal = phase_fano(dev, name, card, wi, wq, DecoderOptions(),
                                 128)
     dec = phase_decode(dev, card, wi, wq, calls, cal)
+    md_counts, _ = phase_multidevice(dev, card, wi, wq, dec.pop("host_spots"))
     del wi, wq
     daemon_counts, daemon_shapes = phase_daemon(dev, card, chunks, refI,
                                                  refQ)
+    chan_counts, chan_shapes = phase_channelize(dev, card, chunks)
+    dist_counts, dist_shapes = phase_distributed(card, chunks)
     del chunks
-    rows += phase_kernel(dev, name, {p: s for p, s in daemon_shapes.items()
-                                     if s}, extras=False)
+    rows += phase_kernel(dev, name, {
+        p: s for p, s in {**daemon_shapes, **chan_shapes,
+                          **dist_shapes}.items() if s}, extras=False)
+    # every path counted from 0 after the front-end phases, by kernel
+    paths = {**daemon_counts, **chan_counts, **md_counts, **dist_counts}
     # cuda, cuda:0 and None (describe, the CLIs) name one card: one
     # measurement in the whole run
     log(f"[decode] FEC calibrations measured in this run: {measured}")
@@ -1265,11 +1768,10 @@ def main() -> None:
             "source": f"rtlsdr_wsprd_tpu_torch/frontend/csrc/{src}",
             "replaces": "rtlsdr_wsprd_tpu/frontend/pallas_decimate.py:78",
             "launches": (launches[route] + launches1[route]
-                         + sum(c[route] for c in daemon_counts.values())),
+                         + sum(c[route] for c in paths.values())),
             "launches_by_path": {"batched": launches[route],
                                  "single": launches1[route],
-                                 **{p: c[route] for p, c
-                                    in daemon_counts.items()}},
+                                 **{p: c[route] for p, c in paths.items()}},
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
@@ -1292,10 +1794,9 @@ def main() -> None:
         "source": "rtlsdr_wsprd_tpu_torch/ops/csrc/fano.cu",
         "replaces": "rtlsdr_wsprd_tpu/ops/fano.py:91",
         "launches": (dec["hybrid_launches"]
-                     + sum(c["fano"] for c in daemon_counts.values())),
+                     + sum(c["fano"] for c in paths.values())),
         "launches_by_path": {"decode (4 hybrid runs)": dec["hybrid_launches"],
-                             **{p: c["fano"] for p, c
-                                in daemon_counts.items()}},
+                             **{p: c["fano"] for p, c in paths.items()}},
         "mismatches": 0,
         "max_abs_err": 0,
         "ms": fano_main["ms"],

@@ -31,6 +31,28 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def resolve_devices(devices=None) -> list[torch.device]:
+    """A device list for the multi-device decode. ``None`` -> every
+    visible CUDA card, ``cuda:0 .. n-1`` (raises without one: never the
+    CPU); a list -> each entry resolved, and a card that is not there
+    raises."""
+    if devices is None:
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n == 0:
+            raise RuntimeError(
+                "CUDA is not available; pass devices=['cpu', ...] to run "
+                "the plain PyTorch versions on the CPU")
+        devices = [f"cuda:{k}" for k in range(n)]
+    devs = [resolve_device(d) for d in devices]
+    if not devs:
+        raise ValueError("no devices given")
+    for d in devs:
+        if d.type == "cuda" and (d.index or 0) >= torch.cuda.device_count():
+            raise ValueError(f"{d}: this host has "
+                             f"{torch.cuda.device_count()} CUDA card(s)")
+    return devs
+
+
 _CONSTS: dict[tuple, tuple[tuple, torch.Tensor]] = {}
 
 

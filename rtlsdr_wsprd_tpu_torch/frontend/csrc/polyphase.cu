@@ -57,7 +57,9 @@
 //    118, at the price of re-reading a halo of (tpp - 1) / 32 of the slab
 //    from L2.
 // Ragged edge: slab rows past the row's last needed input row are zero,
-// and frames past n are not written.
+// and frames past n are not written. A bank of filters: row c takes its
+// own taps, taps_stride floats after row c - 1's (the channelizer's
+// folded dials when its raw carry is float32); stride 0 is one filter.
 //
 // Variants timed on the card and found no faster (PERF.md): a persistent
 // walk in which each block copies its next tile's slab while it computes
@@ -119,9 +121,9 @@ __global__ void __launch_bounds__(
     (Block<kTpp, kComplex, kFrames, kGroup>::kThreads))
 polyphase_kernel(const float* __restrict__ xI, const float* __restrict__ xQ,
                  long long in_stride, int vec, const float* __restrict__ gr,
-                 const float* __restrict__ gi, long long n_frames,
-                 float* __restrict__ yI, float* __restrict__ yQ,
-                 long long out_stride) {
+                 const float* __restrict__ gi, long long taps_stride,
+                 long long n_frames, float* __restrict__ yI,
+                 float* __restrict__ yQ, long long out_stride) {
   using B = Block<kTpp, kComplex, kFrames, kGroup>;
   extern __shared__ __align__(16) float s_slab[];  // [2][kPlane]
 
@@ -133,6 +135,8 @@ polyphase_kernel(const float* __restrict__ xI, const float* __restrict__ xQ,
   const int rows_valid = left < B::kRows ? static_cast<int>(left) : B::kRows;
   const float* pI = xI + c * in_stride + m0 * kR;
   const float* pQ = xQ + c * in_stride + m0 * kR;
+  gr += c * taps_stride;  // row c's filter (stride 0: one for all)
+  gi += c * taps_stride;
 
   // 1. the slab of both planes, once; element (s, r) of a plane at
   // s R + r + kPad (s / kGroup), rows past rows_valid zero. A slab row is
@@ -229,8 +233,8 @@ polyphase_kernel(const float* __restrict__ xI, const float* __restrict__ xQ,
 template <int kTpp, bool kComplex, int kFrames, int kGroup>
 int launch(const float* xI, const float* xQ, long long rows,
            long long in_stride, int vec, const float* gr, const float* gi,
-           long long n_frames, float* yI, float* yQ, long long out_stride,
-           cudaStream_t stream) {
+           long long taps_stride, long long n_frames, float* yI, float* yQ,
+           long long out_stride, cudaStream_t stream) {
   using B = Block<kTpp, kComplex, kFrames, kGroup>;
   auto kernel = polyphase_kernel<kTpp, kComplex, kFrames, kGroup>;
   if (B::kSmem > 48 * 1024) {
@@ -242,7 +246,8 @@ int launch(const float* xI, const float* xQ, long long rows,
   dim3 grid(static_cast<unsigned>((n_frames + kFrames - 1) / kFrames),
             static_cast<unsigned>(rows));
   kernel<<<grid, B::kThreads, B::kSmem, stream>>>(
-      xI, xQ, in_stride, vec, gr, gi, n_frames, yI, yQ, out_stride);
+      xI, xQ, in_stride, vec, gr, gi, taps_stride, n_frames, yI, yQ,
+      out_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -252,15 +257,16 @@ extern "C" {
 
 // xI/xQ: float32 (rows, >= n_frames*R + T - R) planar input, row stride
 // in_stride elements; vec = 1 only if both base pointers and the row
-// stride in bytes are multiples of 16. gr/gi: float32[T] conv-ordered taps.
-// (T, R) must be (640, 80) (complex taps) or (2400, 80) (real taps; gi is
-// not read). yI/yQ: float32 outputs, row stride out_stride elements.
-// Returns 0 on a good launch, else the CUDA error code.
+// stride in bytes are multiples of 16. gr/gi: float32[T] conv-ordered taps,
+// one filter per row taps_stride floats apart (0: every row takes the one
+// filter). (T, R) must be (640, 80) (complex taps) or (2400, 80) (real
+// taps; gi is not read). yI/yQ: float32 outputs, row stride out_stride
+// elements. Returns 0 on a good launch, else the CUDA error code.
 int polyphase_decimate(const void* xI, const void* xQ, long long rows,
                        long long in_stride, int vec, const void* gr,
-                       const void* gi, int T, int R, long long n_frames,
-                       void* yI, void* yQ, long long out_stride,
-                       void* stream) {
+                       const void* gi, long long taps_stride, int T, int R,
+                       long long n_frames, void* yI, void* yQ,
+                       long long out_stride, void* stream) {
   if (rows <= 0 || n_frames <= 0) return 0;
   if (rows > 65535 || R != kR) return static_cast<int>(cudaErrorInvalidValue);
   const auto* i = static_cast<const float*>(xI);
@@ -272,11 +278,13 @@ int polyphase_decimate(const void* xI, const void* xQ, long long rows,
   const auto s = static_cast<cudaStream_t>(stream);
   if (T == kStage1Tpp * kR) {
     return launch<kStage1Tpp, true, kStage1Frames, kStage1Group>(
-        i, q, rows, in_stride, vec, tr, ti, n_frames, oI, oQ, out_stride, s);
+        i, q, rows, in_stride, vec, tr, ti, taps_stride, n_frames, oI, oQ,
+        out_stride, s);
   }
   if (T == kStage2Tpp * kR) {
     return launch<kStage2Tpp, false, kStage2Frames, kStage2Group>(
-        i, q, rows, in_stride, vec, tr, ti, n_frames, oI, oQ, out_stride, s);
+        i, q, rows, in_stride, vec, tr, ti, taps_stride, n_frames, oI, oQ,
+        out_stride, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

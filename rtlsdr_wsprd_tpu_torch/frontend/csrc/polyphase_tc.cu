@@ -63,6 +63,13 @@
 //   version's order) and stores it, coalesced.
 // - Ragged edge: input rows past the channel's last needed row are not
 //   loaded and read as centred 0; frames past n are not written.
+// - A bank of filters: row c reads its own fragment table, bfrag_stride
+//   float4 after row c - 1's. The channelizer passes its one raw stream
+//   as K rows of input stride 0 through K folded dial filters: one launch
+//   for all dials, the stream read from HBM about once and the other
+//   K - 1 dials' blocks finding it in L2 (the counterpart of the JAX
+//   package's one matmul over the dials' concatenated tap matrices).
+//   Stride 0, every other caller, is the one-filter kernel unchanged.
 //
 // Plain C interface, loaded with ctypes. The function launches on the
 // caller's stream, does not synchronise and allocates nothing; it returns
@@ -125,7 +132,8 @@ __global__ void __launch_bounds__(kThreads)
 polyphase_tc_kernel(const uint8_t* __restrict__ xI,
                     const uint8_t* __restrict__ xQ, long long in_stride,
                     int vec, const float4* __restrict__ bfrag,
-                    long long n_frames, float* __restrict__ yI,
+                    long long bfrag_stride, long long n_frames,
+                    float* __restrict__ yI,
                     float* __restrict__ yQ, long long out_stride) {
   static_assert(kLdP * sizeof(float) <= kLdA, "P must fit over the A tile");
   extern __shared__ __align__(16) uint8_t s_a[];  // kRows * kLdA bytes
@@ -138,6 +146,7 @@ polyphase_tc_kernel(const uint8_t* __restrict__ xI,
   const int rows_valid = left < kRows ? static_cast<int>(left) : kRows;
   const uint8_t* pI = xI + c * in_stride + m0 * kR;
   const uint8_t* pQ = xQ + c * in_stride + m0 * kR;
+  bfrag += c * bfrag_stride;  // row c's filter (stride 0: one for all)
 
   // 1. the A tile's bytes, each 16-byte chunk transposed, into shared memory
   if (vec) {
@@ -255,12 +264,16 @@ extern "C" {
 // xI/xQ: uint8 (rows, >= n_frames*80 + 560) planar input, row stride
 // in_stride bytes; vec = 1 only if both base pointers and in_stride are
 // multiples of 16. bfrag: float32 [20, 2, 32, 4], polyphase.py's
-// tc_fragments of the stage-1 taps. yI/yQ: float32 outputs, row stride
-// out_stride elements. Returns 0 on a good launch, else the CUDA error.
+// tc_fragments of the stage-1 taps, one table per row bfrag_stride float4
+// apart (0: every row reads the one table; in_stride 0 with per-row
+// tables is one stream through a bank of filters, the channelizer's
+// folded dials). yI/yQ: float32 outputs, row stride out_stride elements.
+// Returns 0 on a good launch, else the CUDA error.
 int polyphase_tc_decimate(const void* xI, const void* xQ, long long rows,
                           long long in_stride, int vec, const void* bfrag,
-                          long long n_frames, void* yI, void* yQ,
-                          long long out_stride, void* stream) {
+                          long long bfrag_stride, long long n_frames,
+                          void* yI, void* yQ, long long out_stride,
+                          void* stream) {
   if (rows <= 0 || n_frames <= 0) return 0;
   if (rows > 65535) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(static_cast<unsigned>((n_frames + kFrames - 1) / kFrames),
@@ -268,8 +281,8 @@ int polyphase_tc_decimate(const void* xI, const void* xQ, long long rows,
   polyphase_tc_kernel<<<grid, kThreads, kSmem,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(xI), static_cast<const uint8_t*>(xQ),
-      in_stride, vec, static_cast<const float4*>(bfrag), n_frames,
-      static_cast<float*>(yI), static_cast<float*>(yQ), out_stride);
+      in_stride, vec, static_cast<const float4*>(bfrag), bfrag_stride,
+      n_frames, static_cast<float*>(yI), static_cast<float*>(yQ), out_stride);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,6 +17,10 @@ fallback.
   memory once; each thread holds one phase's taps in registers and a
   tile of frames.
 
+Either kernel also takes a bank of filters, one per input row (one
+launch for all rows): the channelizer's K folded dial filters over its
+one raw stream.
+
 Both replace ``rtlsdr_wsprd_tpu/frontend/pallas_decimate.py``
 ``decimate_stage1_pallas``; each source holds its own note on what
 bounds it on an H100 and what its design does about that.
@@ -47,10 +51,10 @@ _vp, _ll, _ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # route -> (library name, source, C function, its argument types)
 _KERNELS = {
     "direct": ("polyphase", _CSRC / "polyphase.cu", "polyphase_decimate",
-               [_vp, _vp, _ll, _ll, _ci, _vp, _vp, _ci, _ci, _ll, _vp, _vp,
-                _ll, _vp]),
+               [_vp, _vp, _ll, _ll, _ci, _vp, _vp, _ll, _ci, _ci, _ll, _vp,
+                _vp, _ll, _vp]),
     "tc": ("polyphase_tc", _CSRC / "polyphase_tc.cu", "polyphase_tc_decimate",
-           [_vp, _vp, _ll, _ll, _ci, _vp, _ll, _vp, _vp, _ll, _vp]),
+           [_vp, _vp, _ll, _ll, _ci, _vp, _ll, _ll, _vp, _vp, _ll, _vp]),
 }
 # the tensor-core kernel's filter (T, R)
 TC_SHAPE = (640, 80)
@@ -184,6 +188,31 @@ class PolyphaseFilter:
         return cplx is not None and (cplx or not np.any(self.gi))
 
 
+def _stack(*tables: np.ndarray) -> np.ndarray:
+    return np.stack(tables)
+
+
+def _bank_fragments(*tables: np.ndarray) -> np.ndarray:
+    """(Htop_0, Hbot_0, Htop_1, Hbot_1, ...) -> every filter's
+    ``tc_fragments`` table, stacked [K, 20, 2, 32, 4]."""
+    return np.stack([tc_fragments(tables[i], tables[i + 1])
+                     for i in range(0, len(tables), 2)])
+
+
+def _split_bank(filt):
+    """``filt``: one PolyphaseFilter, or a bank (a sequence of them of one
+    shape, one per input row). Returns (the first filter, the bank's list
+    or None for one filter)."""
+    if isinstance(filt, PolyphaseFilter):
+        return filt, None
+    bank = list(filt)
+    if not bank or not all(isinstance(f, PolyphaseFilter) for f in bank):
+        raise TypeError("want a PolyphaseFilter or a sequence of them")
+    if len({(f.T, f.R) for f in bank}) != 1:
+        raise ValueError("a filter bank needs one (T, R) for every row")
+    return bank[0], bank
+
+
 def _center_f32(x: torch.Tensor) -> torch.Tensor:
     """uint8 RTL bytes -> centred float32; floats pass through."""
     if x.dtype == torch.uint8:
@@ -191,19 +220,29 @@ def _center_f32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32)
 
 
-def polyphase_plain(xI: torch.Tensor, xQ: torch.Tensor,
-                    filt: PolyphaseFilter, n_frames: int):
+def polyphase_plain(xI: torch.Tensor, xQ: torch.Tensor, filt,
+                    n_frames: int):
     """Plain PyTorch version: (..., L) uint8|float32 planar -> planar
-    float32 (..., n_frames), L >= n_frames*R + T - R."""
-    R, tpp = filt.R, filt.tpp
-    tabs = filt.tensors(xI.device)
+    float32 (..., n_frames), L >= n_frames*R + T - R. ``filt`` is one
+    PolyphaseFilter, or a bank of K (then the input is (K, L) and row k
+    goes through filter k: a batched product over the rows' own
+    Htop/Hbot)."""
+    first, bank = _split_bank(filt)
+    R, tpp = first.R, first.tpp
+    if bank is None:
+        tabs = filt.tensors(xI.device)
+        htop, hbot = tabs.htop, tabs.hbot
+    else:
+        _check_bank_rows(xI, bank)
+        htop = derived_const(_stack, tuple(f.htop for f in bank), xI.device)
+        hbot = derived_const(_stack, tuple(f.hbot for f in bank), xI.device)
     need = (n_frames + tpp - 1) * R
     fI = _center_f32(xI[..., :need])
     fQ = _center_f32(xQ[..., :need])
     lead = fI.shape[:-1]
     rowsI = fI.reshape(*lead, n_frames + tpp - 1, R)
     rowsQ = fQ.reshape(*lead, n_frames + tpp - 1, R)
-    P = rowsI @ tabs.htop + rowsQ @ tabs.hbot
+    P = rowsI @ htop + rowsQ @ hbot
     yI = P[..., 0:n_frames, 0]
     yQ = P[..., 0:n_frames, 1]
     for t in range(1, tpp):
@@ -212,34 +251,48 @@ def polyphase_plain(xI: torch.Tensor, xQ: torch.Tensor,
     return yI, yQ
 
 
-def _route(device_type: str, dtype: torch.dtype,
-           filt: PolyphaseFilter) -> str:
-    """The kernel a CUDA call takes: ``"tc"`` for uint8 planes through a
-    filter the tensor-core kernel takes (stage 1), ``"direct"`` for
-    float32 planes through a filter polyphase.cu takes; any other
-    call raises."""
+def _check_bank_rows(xI: torch.Tensor, bank: list) -> None:
+    if xI.dim() != 2 or xI.shape[0] != len(bank):
+        raise ValueError(f"a bank of {len(bank)} filters needs "
+                         f"({len(bank)}, L) planes, got {tuple(xI.shape)}")
+
+
+def _route(device_type: str, dtype: torch.dtype, filt) -> str:
+    """The kernel a CUDA call takes: ``"tc"`` for uint8 planes through
+    filters the tensor-core kernel takes (stage 1), ``"direct"`` for
+    float32 planes through filters polyphase.cu takes; any other call
+    raises. ``filt``: one filter or a bank, every filter of which must
+    fit the route."""
     if device_type != "cuda":
         raise ValueError(f"no kernel for device type {device_type!r}")
+    first, bank = _split_bank(filt)
+    filters = bank or [first]
     if dtype == torch.uint8:
-        if not filt.tc_capable:
+        bad = [f for f in filters if not f.tc_capable]
+        if bad:
             raise ValueError(
                 f"uint8 planes need the stage-1 filter (T, R) = {TC_SHAPE} "
-                f"with complex taps, got ({filt.T}, {filt.R})")
+                f"with complex taps, got ({bad[0].T}, {bad[0].R})")
         return "tc"
-    if not filt.direct_capable:
+    bad = [f for f in filters if not f.direct_capable]
+    if bad:
         raise ValueError(
             f"float32 planes need the stage-1 filter (T, R) = (640, 80) or "
-            f"a real-tap (2400, 80) one, got ({filt.T}, {filt.R})")
+            f"a real-tap (2400, 80) one, got ({bad[0].T}, {bad[0].R})")
     return "direct"
 
 
-def polyphase_decimate(xI: torch.Tensor, xQ: torch.Tensor,
-                       filt: PolyphaseFilter, n_frames: int):
+def polyphase_decimate(xI: torch.Tensor, xQ: torch.Tensor, filt,
+                       n_frames: int):
     """(L,) or (C, L) planar uint8|float32 -> planar float32 (C?, n_frames).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    ``_route`` names (any row stride, unit sample stride) and count the
-    launch in ``polyphase_decimate.launches[route]``."""
+    ``filt``: one PolyphaseFilter for every row, or a bank of C of them,
+    row c through filter c (the channelizer passes its one stream as
+    ``x.expand(C, L)``, row stride 0). CPU tensors take the plain
+    version; CUDA tensors launch the kernel ``_route`` names (any row
+    stride, unit sample stride) and count the launch in
+    ``polyphase_decimate.launches[route]``: one launch for all rows,
+    bank or not."""
     if xI.device != xQ.device:
         raise ValueError("xI and xQ on different devices")
     if xI.device.type == "cpu":
@@ -253,6 +306,9 @@ def polyphase_decimate(xI: torch.Tensor, xQ: torch.Tensor,
     if xI.shape != xQ.shape or xI.dim() not in (1, 2):
         raise ValueError(f"bad plane shapes {tuple(xI.shape)}, "
                          f"{tuple(xQ.shape)}")
+    filt, bank = _split_bank(filt)
+    if bank is not None:
+        _check_bank_rows(xI, bank)
     single = xI.dim() == 1
     rI = xI[None] if single else xI
     rQ = xQ[None] if single else xQ
@@ -268,7 +324,18 @@ def polyphase_decimate(xI: torch.Tensor, xQ: torch.Tensor,
                       device=xI.device)
     if n_frames <= 0 or rows == 0:
         return (out[0, 0], out[1, 0]) if single else (out[0], out[1])
-    tabs = filt.tensors(xI.device)
+    if bank is None:
+        tabs = filt.tensors(xI.device)
+        b_frag, gr, gi, stride = tabs.b_frag, tabs.gr, tabs.gi, 0
+    elif route == "tc":
+        b_frag = derived_const(
+            _bank_fragments,
+            tuple(t for f in bank for t in (f.htop, f.hbot)), xI.device)
+        stride = b_frag[0].numel() // 4  # float4 a row
+    else:
+        gr = derived_const(_stack, tuple(f.gr for f in bank), xI.device)
+        gi = derived_const(_stack, tuple(f.gi for f in bank), xI.device)
+        stride = filt.T
     lib = _load_kernel(route)
     # 16-byte loads where both planes' rows start 16-byte aligned
     row_bytes = rI.stride(0) * rI.element_size() if rows > 1 else 0
@@ -279,12 +346,12 @@ def polyphase_decimate(xI: torch.Tensor, xQ: torch.Tensor,
         if route == "tc":
             rc = lib.polyphase_tc_decimate(
                 rI.data_ptr(), rQ.data_ptr(), rows, rI.stride(0), vec,
-                tabs.b_frag.data_ptr(), n_frames, out[0].data_ptr(),
+                b_frag.data_ptr(), stride, n_frames, out[0].data_ptr(),
                 out[1].data_ptr(), n_frames, stream)
         else:
             rc = lib.polyphase_decimate(
                 rI.data_ptr(), rQ.data_ptr(), rows, rI.stride(0), vec,
-                tabs.gr.data_ptr(), tabs.gi.data_ptr(), filt.T, filt.R,
+                gr.data_ptr(), gi.data_ptr(), stride, filt.T, filt.R,
                 n_frames, out[0].data_ptr(), out[1].data_ptr(), n_frames,
                 stream)
     if rc != 0:

@@ -5,7 +5,7 @@ The port's copy of ``rtlsdr_wsprd_tpu/multicli.py``. The reference
 daemon serves exactly one dongle per process (rtlsdr_wsprd.c:961-1203);
 this entry point drives a BANK of channels — one rtl_tcp server per
 dongle/band, or synthetic channels for load generation — through one
-batched pipeline on one CUDA card.
+batched pipeline on CUDA cards.
 
     python -m rtlsdr_wsprd_tpu_torch.multicli \
         --endpoint sdr0:1234:20m --endpoint sdr1:1234:40m \
@@ -13,13 +13,20 @@ batched pipeline on one CUDA card.
 
     python -m rtlsdr_wsprd_tpu_torch.multicli --synth 8 -n 1 -x
 
+    # wideband: one dongle at LF (direct sampling), MF and 160 m
+    # decoded from its one 2.4 Msps stream
+    python -m rtlsdr_wsprd_tpu_torch.multicli \
+        --endpoint sdr0:1234:lf --dial mf --dial 160m -c A1XYZ -l AB12cd
+
+    # multi-host: the same command on every host, each with its --rank;
+    # rank k serves its contiguous slice of the endpoints
+    python -m rtlsdr_wsprd_tpu_torch.multicli --coordinator host0:29500 \
+        --nprocs 2 --rank 0 --devices all --endpoint ... -x
+
 Frequency accepts the same band names / unit suffixes as the main CLI
 (-f). Reporting posts each channel's spots with that channel's dial
-frequency. ``--compute-device`` as in the main CLI. The JAX package's
-flags of later slices parse and raise ``NotImplementedError``:
-``--devices all`` (ROADMAP Queue 1 item 4, multi-device),
-``--coordinator``/``--nprocs``/``--rank`` (item 5, distributed) and
-``--dial`` (the channelizer).
+frequency. ``--compute-device`` as in the main CLI (the front end's
+device, and the decode's unless ``--devices all``).
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import sys
 from . import __version__
 from .cli import add_compute_device, parse_frequency
 from .config import DecoderOptions
-from .device import resolve_device
+from .device import resolve_device, resolve_devices
 from .runtime.banks import RtlTcpBank, SyntheticRawBank
 from .runtime.multidaemon import MultiChannelDaemon
 from .runtime.reporting import WsprnetReporter
@@ -93,8 +100,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "straggler finish")
     p.add_argument("--devices", choices=("default", "all"),
                    default="default",
-                   help="decode on the default device; 'all' (every "
-                        "local card) is not ported yet")
+                   help="decode on the default device, or shard each "
+                        "window batch's channels across ALL local "
+                        "cards (one staged pipeline per card)")
     p.add_argument("--strict-hash-order", action="store_true",
                    help="with -H: compatibility mode serializing window "
                         "batches (disables the pipeline overlap). Type-3 "
@@ -103,11 +111,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "reference's decode-time side effects (dedupe "
                         "key / subtraction of a then-unresolved type-3)")
     p.add_argument("--coordinator", metavar="HOST:PORT", default=None,
-                   help="multi-host mode (not ported yet)")
+                   help="multi-host mode: torch.distributed rendezvous "
+                        "address (rank 0's host, a free port); every "
+                        "rank runs this same command with its own --rank")
     p.add_argument("--nprocs", type=int, default=1, metavar="N",
-                   help="multi-host mode (not ported yet)")
+                   help="multi-host mode: total process count (the "
+                        "global channel set splits contiguously across "
+                        "ranks; each rank ingests, decodes and reports "
+                        "only its own slice)")
     p.add_argument("--rank", type=int, default=0, metavar="K",
-                   help="multi-host mode (not ported yet)")
+                   help="multi-host mode: this process's rank [0, N)")
     add_compute_device(p)
     p.add_argument("--help", action="help")
     p.add_argument("--version", action="version",
@@ -127,26 +140,59 @@ def main(argv: list[str] | None = None) -> int:
               " --help for usage...", file=sys.stderr)
         return 1
 
-    # flags of later slices: refuse rather than run something else
-    if args.coordinator is not None or args.nprocs > 1:
-        raise NotImplementedError(
-            "--coordinator/--nprocs/--rank: multi-host decode is not "
-            "ported yet (ROADMAP Queue 1 item 5, distributed)")
-    if args.devices != "default":
-        raise NotImplementedError(
-            f"--devices {args.devices}: the multi-device decode is not "
-            "ported yet (ROADMAP Queue 1 item 4, multi-device)")
-    if args.dials:
-        raise NotImplementedError(
-            "--dial: the wideband channelizer is not ported yet (ROADMAP "
-            "Queue 1, the channelizer, frontend/channelize.py)")
     device = resolve_device(args.compute_device)
+    devices = args.devices
+    if devices == "all" and device.type == "cuda":
+        devices = resolve_devices(None)
+
+    # multi-host mode: wire every rank into ONE torch.distributed job,
+    # then keep only this rank's contiguous slice of the GLOBAL channel
+    # set — each rank ingests, decodes (on its local devices) and
+    # reports its own channels; sample data never crosses hosts (decode
+    # is embarrassingly parallel per window). The reference's whole
+    # live path serves one dongle in one process
+    # (rtlsdr_wsprd.c:126-328); this scales that chain to N hosts.
+    distributed = args.coordinator is not None or args.nprocs > 1
+    sl = slice(None)
+    if distributed:
+        if args.coordinator is None or not 0 <= args.rank < args.nprocs:
+            print("Multi-host mode needs --coordinator HOST:PORT and "
+                  "0 <= --rank < --nprocs.", file=sys.stderr)
+            return 1
+        if args.dials:
+            print("--dial (wideband) decodes ONE dongle's capture; it "
+                  "cannot split across ranks.", file=sys.stderr)
+            return 1
+        from .parallel import distributed as dist
+
+        dist.initialize(coordinator=args.coordinator,
+                        num_processes=args.nprocs, process_id=args.rank)
+        try:
+            return _main(args, device, devices, dist, sl=dist.rank_slice(
+                args.synth if args.synth else len(args.endpoint),
+                args.rank, args.nprocs))
+        finally:
+            dist.shutdown()
+    return _main(args, device, devices, None, sl)
+
+
+def _main(args, device, devices, dist, sl: slice) -> int:
+    """The daemon run of ``main`` for this rank's slice ``sl`` of the
+    channels (``dist``: the distributed module in multi-host mode)."""
+    if dist is not None:
+        if sl.start >= sl.stop:
+            print(f"Rank {args.rank}: no channels to serve (more ranks "
+                  "than channels).", file=sys.stderr)
+            return 1
+        n_local = 1 if isinstance(devices, str) else len(devices)
+        print(f"Distributed: rank {args.rank}/{args.nprocs} serving "
+              f"channels [{sl.start}, {sl.stop}) on {n_local} local "
+              f"device(s), {dist.global_device_count(n_local)} global.")
 
     dialfreqs: list[int] = []
     if args.synth:
-        f0s = [(37 * k) % 180 - 90.0 for k in range(args.synth)]
-        seeds = list(range(1000, 1000 + args.synth))
-        bank = SyntheticRawBank(len(f0s), f0s=f0s, seeds=seeds)
+        f0s = [(37 * k) % 180 - 90.0 for k in range(args.synth)][sl]
+        seeds = list(range(1000, 1000 + args.synth))[sl]
         dialfreqs = [14_095_600] * len(f0s)
     else:
         endpoints = []
@@ -168,7 +214,33 @@ def main(argv: list[str] | None = None) -> int:
                 autogain=args.autogain, ppm=args.ppm,
                 directsampling=directsampling,
                 reconnect=args.reconnect)))
-        bank = RtlTcpBank(endpoints)
+        # every rank validates the FULL endpoint list (identical
+        # command line everywhere), then connects only to its own
+        endpoints = endpoints[sl]
+        dialfreqs = dialfreqs[sl]
+
+    # the wideband dials are checked before any channel is made
+    channelize = None
+    if args.dials:
+        if args.synth or len(args.endpoint) != 1:
+            print("--dial (wideband) needs exactly one --endpoint.",
+                  file=sys.stderr)
+            return 1
+        channelize = [dialfreqs[0]]
+        for d in args.dials:
+            f, _ds = parse_frequency(d)
+            # the tuned center is dial0 + 601.5 kHz (fs/4 offset), so
+            # the 2.4 Msps capture covers dial0 - 598.5k .. + 1801.5k;
+            # 5 kHz margin keeps the band off the Nyquist edges
+            if f == 0 or not (-593_500 < f - dialfreqs[0] < 1_796_500):
+                print(f"Bad --dial {d!r} (unknown or outside the "
+                      "2.4 Msps span: dial-593.5k .. dial+1796.5k)",
+                      file=sys.stderr)
+                return 1
+            channelize.append(f)
+        dialfreqs = list(channelize)
+    bank = (SyntheticRawBank(len(f0s), f0s=f0s, seeds=seeds) if args.synth
+            else RtlTcpBank(endpoints))
 
     options = DecoderOptions(
         freq=dialfreqs[0],
@@ -192,7 +264,7 @@ def main(argv: list[str] | None = None) -> int:
         device_batch=args.device_batch,
         fec=args.fec, dialfreqs=dialfreqs, reporters=reporters,
         align=not args.synth and not args.noalign,
-        frontend=args.frontend,
+        frontend=args.frontend, channelize=channelize, devices=devices,
         strict_hash_order=args.strict_hash_order,
         write_prefix=args.writefile, device=device)
     print(f"FEC strategy : {daemon.describe_fec()}")
@@ -208,7 +280,8 @@ def main(argv: list[str] | None = None) -> int:
             daemon.stats.dropped_reports = sum(r.dropped
                                                for r in reporters)
     s = daemon.stats
-    print(f"Processed {s.window_batches} window batch(es), "
+    tag = f"[rank {args.rank}] " if dist is not None else ""
+    print(f"{tag}Processed {s.window_batches} window batch(es), "
           f"{s.channel_windows} channel-windows, {s.spots} spot(s), "
           f"{s.errors} error(s).")
     if s.dropped_reports:

@@ -3,24 +3,24 @@
 The port's copy of ``rtlsdr_wsprd_tpu/runtime/multidaemon.py``. The
 reference's live path is one continuously running chain — RX callback
 -> decimate -> window -> decode -> report (rtlsdr_wsprd.c:126-328) —
-for ONE channel. This module is its many-channel analog on one CUDA
-card, wiring the pieces end to end:
+for ONE channel. This module is its many-channel analog on CUDA cards,
+wiring the pieces end to end:
 
     RawBank (uint8, aligned chunks; runtime/banks.py)
       -> BatchedStreamingDecimator (one stage-1 + stage-2 step per
          push: uint8 crosses the link, stage 1 on
-         frontend/csrc/polyphase_tc.cu, stage 2 on polyphase.cu)
+         frontend/csrc/polyphase_tc.cu, stage 2 on polyphase.cu), or in
+         wideband mode ChannelizingStreamingDecimator (ONE raw stream,
+         K dials: every dial's stage 1 in one launch of the same
+         kernels through a bank of folded filters)
       -> per-channel 120 s window assembly + row-wise -3 dB norm
          (rtlsdr_wsprd.c:291-305)
       -> decode_channels_pipelined (2-deep: batch k+1's ingest and
          host work overlap batch k's device decode — the reference's
          RX/decode double buffer, rtlsdr_wsprd.c:75-91; the hybrid FEC
-         on ops/csrc/fano.cu)
+         on ops/csrc/fano.cu), or its multi-device form, one shard of
+         each batch per device
       -> per-channel spot reporting.
-
-Not ported yet (each raises ``NotImplementedError``): ``devices`` other
-than ``"default"`` (ROADMAP Queue 1 item 4, multi-device) and
-``channelize`` (the channelizer, ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -34,10 +34,13 @@ from dataclasses import dataclass, field, replace
 import numpy as np
 
 from ..config import SIGNAL_SAMPLES, DecoderOptions
-from ..device import resolve_device
+from ..device import resolve_device, resolve_devices
 from ..frontend.decimate import BatchedStreamingDecimator
 from ..models.decoder import Spot
-from ..parallel.multichannel import decode_channels_pipelined
+from ..parallel.multichannel import (
+    decode_channels_pipelined,
+    decode_channels_pipelined_multidevice,
+)
 from ..utils.hashtable import WsprHashTable
 from .banks import RawBank
 from .reporting import WsprnetReporter, print_spots
@@ -105,13 +108,20 @@ class MultiChannelDaemon:
         card, the hand-written polyphase kernels; frontend/decimate.py)
         or ``"host"`` (native C++ polyphase, only 375 sps baseband
         crosses the link — 1600x fewer bytes; frontend/host_decimate.py).
-        ``channelize``: wideband mode of the JAX package (one raw
-        stream, one output channel per listed dial); not ported yet,
-        raises ``NotImplementedError``. ``devices``: only
-        ``"default"``, the one card ``device`` names (None = the CUDA
-        card); ``"all"`` or a device list (the JAX package's
-        multi-device decode) raise ``NotImplementedError`` until
-        ROADMAP Queue 1 item 4.
+        ``channelize``: wideband mode — the bank is ONE raw stream
+        (n_channels == 1, tuned to ``options.freq``) and each listed
+        dial frequency becomes an output channel via per-dial folded
+        stage-1 taps ahead of the shared polyphase chain
+        (frontend/channelize.py); ``dialfreqs`` defaults to the list.
+        The reference binds one dongle to one band
+        (rtlsdr_wsprd.c:1044-1124) — this decodes every WSPR dial
+        inside the capture's span from one dongle.
+        ``device``: where the front end runs and, with ``devices=
+        "default"``, the decode (None = the CUDA card). ``devices``:
+        ``"default"`` decodes on ``device``; ``"all"`` shards each
+        window batch's channels across every visible CUDA card
+        (decode_channels_pipelined_multidevice), or over ``device``
+        alone where that is the CPU; or pass an explicit device list.
         ``strict_hash_order``: compatibility mode — serialize window
         batches when ``options.usehashtable``. Type-3 ``<hash>`` spots
         already resolve race-free by default (yield-time
@@ -122,15 +132,14 @@ class MultiChannelDaemon:
         ``write_prefix``: save every channel's normalized window as
         ``{prefix}_ch{NN}_{timestamp}.iq`` (the reference's ``-w``
         capture saving, rtlsdr_wsprd.c:477-496, per channel)."""
-        if devices != "default":
-            raise NotImplementedError(
-                f"devices={devices!r}: the multi-device decode is not "
-                "ported yet (ROADMAP Queue 1 item 4, multi-device)")
-        if channelize is not None:
-            raise NotImplementedError(
-                "channelize: the wideband channelizer is not ported yet "
-                "(ROADMAP Queue 1, the channelizer, frontend/channelize.py)")
         self.device = resolve_device(device)
+        if devices == "default":
+            self.devices = None
+        elif devices == "all":
+            self.devices = ([self.device] if self.device.type == "cpu"
+                            else resolve_devices(None))
+        else:
+            self.devices = resolve_devices(devices)
         self.bank = bank
         self.strict_hash_order = strict_hash_order
         self.write_prefix = write_prefix
@@ -150,8 +159,17 @@ class MultiChannelDaemon:
             self.hashtable = WsprHashTable.load(hashtable_path)
         else:
             self.hashtable = WsprHashTable()
-        self.n_out_channels = bank.n_channels
-        self._dec = self._make_frontend(frontend, bank.n_channels)
+        if channelize is not None:
+            if bank.n_channels != 1:
+                raise ValueError("channelize requires a single-stream "
+                                 f"bank (got {bank.n_channels} channels)")
+            self.n_out_channels = len(channelize)
+            if self.dialfreqs is None:
+                self.dialfreqs = list(channelize)
+        else:
+            self.n_out_channels = bank.n_channels
+        self._dec = self._make_frontend(frontend, bank.n_channels,
+                                        channelize)
         self._ts: list[float] = []  # completion time per pending batch
 
     def describe_fec(self) -> str:
@@ -164,7 +182,8 @@ class MultiChannelDaemon:
         self.stats.fec = calibrate.describe(self.fec, self.device)
         return self.stats.fec
 
-    def _make_frontend(self, frontend: str, n_channels: int):
+    def _make_frontend(self, frontend: str, n_channels: int,
+                       channelize: list[int] | None):
         from ..frontend.host_decimate import (
             HostBatchedStreamingDecimator,
             resolve_placement,
@@ -172,6 +191,12 @@ class MultiChannelDaemon:
 
         frontend = resolve_placement(frontend)
         self.frontend_placement = frontend
+        if channelize is not None:
+            from ..frontend.channelize import ChannelizingStreamingDecimator
+
+            offsets = [self.options.freq - d for d in channelize]
+            return ChannelizingStreamingDecimator(
+                offsets, placement=frontend, device=self.device)
         if frontend == "host":
             return HostBatchedStreamingDecimator(n_channels)
         return BatchedStreamingDecimator(n_channels, device=self.device)
@@ -298,11 +323,16 @@ class MultiChannelDaemon:
                 print("Batch decode failed (stream continues): "
                       f"{exc!r}")
 
-        pipeline = decode_channels_pipelined(
-            gen, self.options, self.hashtable, depth=self.depth,
-            device_batch=self.device_batch, device=self.device,
-            fec=self.fec, on_error=on_batch_error,
-            strict_hash_order=self.strict_hash_order)
+        kw = dict(depth=self.depth, device_batch=self.device_batch,
+                  fec=self.fec, on_error=on_batch_error,
+                  strict_hash_order=self.strict_hash_order)
+        if self.devices is None:
+            pipeline = decode_channels_pipelined(
+                gen, self.options, self.hashtable, device=self.device, **kw)
+        else:
+            pipeline = decode_channels_pipelined_multidevice(
+                gen, self.options, self.hashtable, devices=self.devices,
+                **kw)
         try:
             for per_channel in pipeline:
                 ts = self._ts.pop(0)

@@ -244,18 +244,176 @@ def test_multicli_argument_checks(capsys):
         assert mine == capsys.readouterr().err
 
 
+class _FakeDaemon:
+    """Stands in for MultiChannelDaemon in multicli: records how the CLI
+    configured it and runs nothing."""
+
+    made = []
+
+    def __init__(self, bank, options, **kw):
+        from rtlsdr_wsprd_tpu_torch.runtime.multidaemon import MultiStats
+
+        self.bank, self.options, self.kw = bank, options, kw
+        self.stats = MultiStats()
+        self.frontend_placement = "device"
+        self.made.append(self)
+
+    def describe_fec(self):
+        return "host (fake)"
+
+    def run(self, max_windows=0):
+        return []
+
+
+class _FakeBank:
+    """Stands in for RtlTcpBank: records its endpoints, connects to
+    nothing."""
+
+    def __init__(self, endpoints):
+        self.endpoints = endpoints
+        self.n_channels = len(endpoints)
+
+    def close(self):
+        pass
+
+
+class _FakeDist:
+    """Stands in for parallel.distributed: a 2-rank job of one device a
+    rank, with no process group."""
+
+    def __init__(self):
+        self.calls = []
+
+    def initialize(self, coordinator, num_processes, process_id):
+        self.calls.append(("initialize", coordinator, num_processes,
+                           process_id))
+
+    def global_device_count(self, n_local):
+        return 2 * n_local
+
+    def shutdown(self):
+        self.calls.append(("shutdown",))
+
+
+@pytest.fixture()
+def fake_multicli(monkeypatch):
+    """multicli with its daemon, rtl_tcp bank and distributed module
+    replaced by the fakes above; yields the fake distributed module."""
+    from rtlsdr_wsprd_tpu_torch.parallel import distributed
+
+    fd = _FakeDist()
+    _FakeDaemon.made = []
+    monkeypatch.setattr(pmulti, "MultiChannelDaemon", _FakeDaemon)
+    monkeypatch.setattr(pmulti, "RtlTcpBank", _FakeBank)
+    for name in ("initialize", "global_device_count", "shutdown"):
+        monkeypatch.setattr(distributed, name, getattr(fd, name))
+    yield fd
+
+
 @pytest.mark.parametrize("argv, item", [
     (["--devices", "all"], "Queue 1 item 4"),
     (["--coordinator", "127.0.0.1:1234", "--nprocs", "2"], "Queue 1 item 5"),
     (["--nprocs", "2", "--rank", "1"], "Queue 1 item 5"),
     (["--dial", "40m"], "channelizer"),
 ])
-def test_multicli_later_slices_raise(argv, item):
-    """Flags of later slices parse and raise NotImplementedError naming
-    their ROADMAP item; no channel is made first."""
-    with pytest.raises(NotImplementedError, match=item):
-        pmulti.main(["--endpoint", "127.0.0.1:1:20m", "-x", *argv,
-                     *CPU_FLAG])
+def test_multicli_later_slices_raise(argv, item, fake_multicli, capsys):
+    """The flags that raised NotImplementedError until their ROADMAP item
+    (``item``) landed now run as in the JAX multicli: --devices all
+    reaches the daemon; --coordinator/--nprocs joins the job and prints
+    the distributed banner; --nprocs without --coordinator and a --dial
+    outside the capture's span exit 1 with the JAX messages, before any
+    channel is made."""
+    rc = pmulti.main(["--endpoint", "127.0.0.1:1:20m", "-x", *argv,
+                      *CPU_FLAG])
+    cap = capsys.readouterr()
+    if argv[0] == "--devices":
+        assert rc == 0 and _FakeDaemon.made[0].kw["devices"] == "all"
+    elif argv[0] == "--coordinator":
+        assert rc == 0
+        assert fake_multicli.calls == [
+            ("initialize", "127.0.0.1:1234", 2, 0), ("shutdown",)]
+        assert ("Distributed: rank 0/2 serving channels [0, 1) on 1 local "
+                "device(s), 2 global.") in cap.out
+        assert "[rank 0] Processed 0 window batch(es)" in cap.out
+    elif argv[0] == "--nprocs":
+        assert rc == 1 and not fake_multicli.calls
+        assert "Multi-host mode needs --coordinator HOST:PORT" in cap.err
+    else:
+        assert rc == 1 and not _FakeDaemon.made
+        assert cap.err.startswith("Bad --dial '40m' (unknown or outside "
+                                  "the 2.4 Msps span")
+
+
+@pytest.mark.parametrize("argv", [
+    ["--synth", "2", "--dial", "mf", "-x"],
+    ["--synth", "2", "--dial", "mf", "-x", "--coordinator", "h:1",
+     "--nprocs", "2"],
+    ["--synth", "2", "-x", "--coordinator", "h:1", "--nprocs", "2",
+     "--rank", "2"],
+    ["--synth", "2", "-x", "--nprocs", "3"],
+], ids=["dial-needs-one-endpoint", "dial-refused-across-ranks",
+        "rank-outside-job", "nprocs-without-coordinator"])
+def test_multicli_dial_and_distributed_checks_match_jax(argv, capsys):
+    """Exits for --dial and the multi-host flags that come before any
+    channel or process group is made: exit 1 and the JAX multicli's
+    message."""
+    assert pmulti.main(argv + CPU_FLAG) == 1
+    mine = capsys.readouterr().err
+    assert jmulti.main(argv) == 1
+    assert mine == capsys.readouterr().err and mine
+
+
+def test_multicli_dial_configures_the_channelizer(fake_multicli, capsys):
+    """--endpoint at LF (direct sampling) with --dial mf --dial 160m: one
+    rtl_tcp channel tuned for LF, three output channels at the three
+    dials (the wideband deployment of frontend/channelize.py), decoded
+    against the endpoint's dial; unknown or out-of-span dials exit 1,
+    as do two endpoints."""
+    from rtlsdr_wsprd_tpu_torch.config import BAND_TABLE as B
+
+    rc = pmulti.main(["--endpoint", "127.0.0.1:1:lf", "--dial", "mf",
+                      "--dial", "160m", "-x", *CPU_FLAG])
+    assert rc == 0
+    [d] = _FakeDaemon.made
+    assert [e[2] for e in d.bank.endpoints] == [B["lf"][0]]
+    assert d.bank.endpoints[0][3]["directsampling"] == 2
+    dials = [B["lf"][0], B["mf"][0], B["160m"][0]]
+    assert d.kw["channelize"] == dials and d.kw["dialfreqs"] == dials
+    assert d.options.freq == B["lf"][0]
+    for argv in (["--endpoint", "127.0.0.1:1:lf", "--dial", "40m"],
+                 ["--endpoint", "127.0.0.1:1:20m", "--dial", "13.4M"],
+                 ["--endpoint", "127.0.0.1:1:20m", "--dial", "0"],
+                 ["--endpoint", "127.0.0.1:1:20m", "--endpoint",
+                  "127.0.0.1:2:30m", "--dial", "20m"]):
+        capsys.readouterr()
+        assert pmulti.main(argv + ["-x", *CPU_FLAG]) == 1
+        err = capsys.readouterr().err
+        assert "Bad --dial" in err or "exactly one --endpoint" in err
+    assert len(_FakeDaemon.made) == 1
+
+
+def test_multicli_ranks_serve_their_slices(fake_multicli, capsys):
+    """Multi-host mode over three endpoints and two ranks: rank 0 serves
+    channels [0, 2), rank 1 [2, 3) (rank_slice), each prints its banner
+    and tags its summary line; every rank validates the whole endpoint
+    list first."""
+    eps = ["127.0.0.1:1:20m", "127.0.0.1:2:40m", "127.0.0.1:3:30m"]
+    argv = [a for ep in eps for a in ("--endpoint", ep)]
+    for rank, span, n in ((0, "[0, 2)", 2), (1, "[2, 3)", 1)):
+        _FakeDaemon.made = []
+        assert pmulti.main(argv + ["-x", "--coordinator", "h:9", "--nprocs",
+                                   "2", "--rank", str(rank), "--devices",
+                                   "all", *CPU_FLAG]) == 0
+        out = capsys.readouterr().out
+        assert (f"Distributed: rank {rank}/2 serving channels {span} on 1 "
+                "local device(s), 2 global.") in out
+        assert f"[rank {rank}] Processed" in out
+        [d] = _FakeDaemon.made
+        assert len(d.bank.endpoints) == n == len(d.kw["dialfreqs"])
+    bad = argv[:-1] + ["127.0.0.1:3:0"]
+    assert pmulti.main(bad + ["-x", "--coordinator", "h:9", "--nprocs", "2",
+                              "--rank", "0", *CPU_FLAG]) == 1
+    assert "Bad frequency in --endpoint" in capsys.readouterr().err
 
 
 @pytest.mark.slow
@@ -299,3 +457,47 @@ def test_cli_rtltcp_daemon_decodes_a_raw_capture(monkeypatch, capsys):
     assert rc == 0
     assert "Session: 1 windows, 1 spots, 0 errors" in out
     assert "K1JT   FN20 20" in out
+
+
+@pytest.mark.slow
+def test_multicli_two_ranks_end_to_end():
+    """Two multicli rank processes on the CPU form one gloo job over 4
+    synthetic raw channels (122 s each): each prints its banner, serves
+    its 2 channels (1 local device, 2 global) and decodes their 2 spots
+    at the frequencies of its own channels, with 0 errors."""
+    import re
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = Path(__file__).resolve().parent.parent
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "rtlsdr_wsprd_tpu_torch.multicli", "--synth",
+         "4", "-n", "1", "-x", "-Q", "--device-batch", "2", "--devices",
+         "all", "--coordinator", f"127.0.0.1:{port}", "--nprocs", "2",
+         "--rank", str(rank), *CPU_FLAG],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=repo) for rank in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=1500)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    want_mhz = [14.095600 + (1500.0 + (37 * k) % 180 - 90.0) / 1e6
+                for k in range(4)]
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, out[-4000:]
+        assert (f"Distributed: rank {rank}/2 serving channels "
+                f"[{2 * rank}, {2 * rank + 2}) on 1 local device(s), "
+                "2 global.") in out
+        assert (f"[rank {rank}] Processed 1 window batch(es), "
+                "2 channel-windows, 2 spot(s), 0 error(s).") in out
+        got = sorted(float(m) for m in re.findall(r"14\.09\d{4}", out))
+        assert len(got) == 2
+        for g, w in zip(got, sorted(want_mhz[2 * rank:2 * rank + 2])):
+            assert abs(g - w) < 5e-6

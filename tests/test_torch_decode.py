@@ -332,7 +332,8 @@ def test_import_leaves_jax_out():
     """In a fresh interpreter, importing every module of the port (and
     chip_smoke.py) loads neither jax nor the JAX package; the walk
     reaches the FEC modules (ops.fano, ops.fano_hybrid, ops.calibrate),
-    the runtime layer and both CLIs."""
+    the runtime layer, both CLIs, the channelizer and the multi-host
+    runtime (parallel.distributed, parallel.streaming, parallel.dryrun)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import rtlsdr_wsprd_tpu_torch as p\n"
@@ -342,7 +343,9 @@ def test_import_leaves_jax_out():
         "new = ('ops.fano', 'ops.fano_hybrid', 'ops.calibrate', 'cli',\n"
         "       'multicli', 'frontend.host_decimate', 'runtime.reporting',\n"
         "       'runtime.sources', 'runtime.banks', 'runtime.scheduler',\n"
-        "       'runtime.multidaemon')\n"
+        "       'runtime.multidaemon', 'frontend.channelize',\n"
+        "       'parallel.distributed', 'parallel.streaming',\n"
+        "       'parallel.dryrun')\n"
         "assert all(p.__name__ + '.' + m in sys.modules for m in new)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'rtlsdr_wsprd_tpu'))\n"

@@ -12,6 +12,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from rtlsdr_wsprd_tpu.config import DecoderOptions as JOptions
 from rtlsdr_wsprd_tpu.models.decoder import Spot as JSpot
@@ -767,9 +768,32 @@ def test_multichannel_daemon_counts_a_failed_batch():
     (dict(channelize=[14_095_600, 7_038_600]), "channelizer"),
 ])
 def test_multichannel_daemon_later_slices_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        pmd.MultiChannelDaemon(_ZeroBank(1, reads=0), DecoderOptions(),
-                               device=CPU, **kw)
+    """The settings that raised NotImplementedError until their ROADMAP
+    item (``item``) landed now configure the daemon: ``devices="all"``
+    on the CPU decodes on the one CPU device, a list of cards that are
+    not there raises (nothing falls back to the CPU), and ``channelize``
+    puts the channelizer in front, one output channel per dial at
+    offset ``options.freq - dial``, the dials as ``dialfreqs``."""
+    from rtlsdr_wsprd_tpu_torch.frontend.channelize import (
+        ChannelizingStreamingDecimator,
+    )
+
+    opts = DecoderOptions(freq=14_095_600)
+    if kw.get("devices") == ["cuda:0", "cuda:1"]:
+        with pytest.raises((RuntimeError, ValueError)):
+            pmd.MultiChannelDaemon(_ZeroBank(1, reads=0), opts, device=CPU,
+                                   **kw)
+        return
+    d = pmd.MultiChannelDaemon(_ZeroBank(1, reads=0), opts, device=CPU,
+                               **kw)
+    if "devices" in kw:
+        assert d.devices == [torch.device("cpu")]
+        return
+    assert isinstance(d._dec, ChannelizingStreamingDecimator)
+    assert d.n_out_channels == 2 and d.dialfreqs == kw["channelize"]
+    np.testing.assert_array_equal(d._dec.offsets, [0.0, 7_057_000.0])
+    with pytest.raises(ValueError, match="single-stream"):
+        pmd.MultiChannelDaemon(_ZeroBank(2, reads=0), opts, device=CPU, **kw)
 
 
 def test_host_frontend_daemon_placement(monkeypatch):
