@@ -823,6 +823,13 @@ def phase_fano(dev, name, card, wi, wq, opts, DB):
     return rows, cal
 
 
+def _fields(spots):
+    """Every field of per-channel spot lists (the equality the decode
+    paths are held to)."""
+    return [[(x.message, x.jitter, x.cycles, x.freq, x.snr, x.dt, x.sync,
+              x.drift) for x in ch] for ch in spots]
+
+
 def phase_decode(dev, card, wi, wq, calls, cal, DB: int = 128):
     """Host, hybrid and pipelined decode of the batch; returns the Fano
     kernel's launches on the hybrid runs."""
@@ -844,10 +851,6 @@ def phase_decode(dev, card, wi, wq, calls, cal, DB: int = 128):
         torch.cuda.synchronize()
         return out
 
-    def fields(spots):
-        return [[(x.message, x.jitter, x.cycles, x.freq, x.snr, x.dt, x.sync)
-                 for x in ch] for ch in spots]
-
     def timed(fec):
         t0 = time.perf_counter()
         spots = run(fec)
@@ -857,7 +860,7 @@ def phase_decode(dev, card, wi, wq, calls, cal, DB: int = 128):
             t0 = time.perf_counter()
             got = run(fec)
             secs.append(time.perf_counter() - t0)
-            if fields(got) != fields(spots):
+            if _fields(got) != _fields(spots):
                 fail(f"fec={fec}: decode runs disagree")
         med = statistics.median(secs)
         missing = [b for b in range(B) if b % 4 != 3 and calls[b % 4]
@@ -885,21 +888,22 @@ def phase_decode(dev, card, wi, wq, calls, cal, DB: int = 128):
     launches = batched_fano.launches
     if not launches:
         fail("the hybrid decode launched the Fano kernel no time")
-    if fields(hybrid) != fields(host):
-        diff = [b for b in range(B) if fields(hybrid)[b] != fields(host)[b]]
+    if _fields(hybrid) != _fields(host):
+        diff = [b for b in range(B)
+                if _fields(hybrid)[b] != _fields(host)[b]]
         fail(f"hybrid spots differ from host in windows {diff[:10]}")
     log(f"[decode] hybrid spot lists equal host's; {launches} Fano kernel "
         f"launches over the 4 hybrid runs ({launches // 4} a run)")
 
     n_batches = 4
-    want = fields(host)
+    want = _fields(host)
     t0 = time.perf_counter()
     out = list(decode_channels_pipelined(
         [(wi, wq)] * n_batches, opts, depth=2, device_batch=DB,
         device="cuda:0"))
     torch.cuda.synchronize()
     pipe_s = time.perf_counter() - t0
-    if len(out) != n_batches or any(fields(o) != want for o in out):
+    if len(out) != n_batches or any(_fields(o) != want for o in out):
         fail("a pipelined batch differs from the host decode")
     pipe_rate = n_batches * B / pipe_s
     log(f"[decode] decode_channels_pipelined depth 2 on cuda:0, {n_batches}"
@@ -1315,13 +1319,6 @@ def phase_daemon(dev, card, chunks, laneI, laneQ):
         summary["multicli_synth2_wall_s"] = round(secs, 3)
     log(json.dumps({"daemon": summary}))
     return counts, shapes_by_path
-
-
-def _fields(spots):
-    """Every field of per-channel spot lists (the equality the decode
-    paths are held to)."""
-    return [[(x.message, x.jitter, x.cycles, x.freq, x.snr, x.dt, x.sync,
-              x.drift) for x in ch] for ch in spots]
 
 
 def _mismatches(got, want) -> list[int]:

@@ -180,14 +180,17 @@ def _main(args, device, devices, dist, sl: slice) -> int:
     """The daemon run of ``main`` for this rank's slice ``sl`` of the
     channels (``dist``: the distributed module in multi-host mode)."""
     if dist is not None:
+        # every rank joins the count (a collective), a rank without
+        # channels too, so that no other rank waits on it
+        n_local = 1 if isinstance(devices, str) else len(devices)
+        n_global = dist.global_device_count(n_local)
         if sl.start >= sl.stop:
             print(f"Rank {args.rank}: no channels to serve (more ranks "
                   "than channels).", file=sys.stderr)
             return 1
-        n_local = 1 if isinstance(devices, str) else len(devices)
         print(f"Distributed: rank {args.rank}/{args.nprocs} serving "
               f"channels [{sl.start}, {sl.stop}) on {n_local} local "
-              f"device(s), {dist.global_device_count(n_local)} global.")
+              f"device(s), {n_global} global.")
 
     dialfreqs: list[int] = []
     if args.synth:

@@ -289,6 +289,7 @@ class _FakeDist:
                            process_id))
 
     def global_device_count(self, n_local):
+        self.calls.append(("global_device_count", n_local))
         return 2 * n_local
 
     def shutdown(self):
@@ -331,7 +332,8 @@ def test_multicli_later_slices_raise(argv, item, fake_multicli, capsys):
     elif argv[0] == "--coordinator":
         assert rc == 0
         assert fake_multicli.calls == [
-            ("initialize", "127.0.0.1:1234", 2, 0), ("shutdown",)]
+            ("initialize", "127.0.0.1:1234", 2, 0),
+            ("global_device_count", 1), ("shutdown",)]
         assert ("Distributed: rank 0/2 serving channels [0, 1) on 1 local "
                 "device(s), 2 global.") in cap.out
         assert "[rank 0] Processed 0 window batch(es)" in cap.out
@@ -414,6 +416,15 @@ def test_multicli_ranks_serve_their_slices(fake_multicli, capsys):
     assert pmulti.main(bad + ["-x", "--coordinator", "h:9", "--nprocs", "2",
                               "--rank", "0", *CPU_FLAG]) == 1
     assert "Bad frequency in --endpoint" in capsys.readouterr().err
+    # more ranks than channels: the idle rank still joins the device
+    # count (a collective), then exits 1
+    fake_multicli.calls.clear()
+    assert pmulti.main(argv[:2] + ["-x", "--coordinator", "h:9", "--nprocs",
+                                   "2", "--rank", "1", *CPU_FLAG]) == 1
+    assert "Rank 1: no channels to serve" in capsys.readouterr().err
+    assert fake_multicli.calls == [("initialize", "h:9", 2, 1),
+                                   ("global_device_count", 1),
+                                   ("shutdown",)]
 
 
 @pytest.mark.slow
