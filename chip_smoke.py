@@ -1399,8 +1399,8 @@ def phase_channelize(dev, card, chunks):
     summary: dict = {"card": card}
 
     # 1. the tuned dial's channel is the plain front end
-    def run(fe):
-        outs = [fe.push(ri[None], rq[None]) for ri, rq in chunks]
+    def run(fe, src):
+        outs = [fe.push(ri[None], rq[None]) for ri, rq in src]
         outs.append(fe.flush())
         return (np.concatenate([o[0] for o in outs], axis=1),
                 np.concatenate([o[1] for o in outs], axis=1))
@@ -1408,9 +1408,10 @@ def phase_channelize(dev, card, chunks):
     with counted_path("channelizer, zero offset", counts, shapes_by_path,
                       phase="channelize"):
         t0 = time.perf_counter()
-        cI, cQ = run(ChannelizingStreamingDecimator([0.0], device=dev))
+        cI, cQ = run(ChannelizingStreamingDecimator([0.0], device=dev),
+                     chunks)
         secs = time.perf_counter() - t0
-    pI, pQ = run(BatchedStreamingDecimator(1, device=dev))
+    pI, pQ = run(BatchedStreamingDecimator(1, device=dev), chunks)
     scale = float(np.abs(pI).max())
     err = float(max(np.abs(cI - pI).max(), np.abs(cQ - pQ).max())) if (
         cI.shape == pI.shape) else float("inf")
@@ -1431,7 +1432,8 @@ def phase_channelize(dev, card, chunks):
     with counted_path(f"channelizer, {len(dials)} dials", counts,
                       shapes_by_path, phase="channelize"):
         t0 = time.perf_counter()
-        wI, wQ = run(ChannelizingStreamingDecimator(offsets, device=dev))
+        wI, wQ = run(ChannelizingStreamingDecimator(offsets, device=dev),
+                     wide)
         secs = time.perf_counter() - t0
     if wI.shape[0] != len(dials) or wI.shape[1] != pI.shape[1] or not (
             np.isfinite(wI).all() and np.isfinite(wQ).all()):
@@ -1440,6 +1442,27 @@ def phase_channelize(dev, card, chunks):
     log(f"[channelize] {len(dials)} dials x 120 s raw in {secs:.2f} s = "
         f"{rate:.1f} channel-s per s in 10 s pushes ({card})")
     summary["channel_s_per_s_3_dials"] = round(rate, 1)
+
+    # a float32 carry takes polyphase.cu's bank route: the first 20 s,
+    # centred to float32, equal the uint8 run's first outputs
+    f32 = [(ri.astype(np.float32) - 128.0, rq.astype(np.float32) - 128.0)
+           for ri, rq in wide[:2]]
+    label = f"channelizer, {len(dials)} dials, float32 carry"
+    with counted_path(label, counts, shapes_by_path, phase="channelize"):
+        fI, fQ = run(ChannelizingStreamingDecimator(offsets, device=dev),
+                     f32)
+    c, sh = counts[label], shapes_by_path[label]
+    n = fI.shape[1]
+    scale = float(np.abs(wI[:, :n]).max())
+    err = float(max(np.abs(fI - wI[:, :n]).max(),
+                    np.abs(fQ - wQ[:, :n]).max()))
+    log(f"[channelize] float32 carry, 20 s: {n} samples a dial, max |diff| "
+        f"against the uint8 run {err:.3g} (scale {scale:.4g}, tolerance "
+        f"{2e-4 * scale:.3g}); launches {c}")
+    if (not n or not err <= 2e-4 * scale or c["tc"]
+            or c["direct"] != sum(sh.values())):
+        fail(f"the float32-carry channelizer: max |diff| {err}, launches "
+             f"{c}, calls {sh}")
 
     # 3. multicli --dial: one rtl_tcp dongle at LF, three dials
     made: list = []
