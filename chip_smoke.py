@@ -107,7 +107,8 @@ Phases, in order; any failure exits non-zero before the last line:
 10. distributed
             dryrun_multichip(2, cuda:0) (two gloo ranks on the card, each
             decoding its slice and running both sharded decimations, rank
-            0 checking them against the unsharded ones); two multicli
+            0 checking them against the unsharded ones; each rank's
+            launches must be its own noted sharded calls); two multicli
             rank processes (--coordinator, --nprocs 2, --devices all)
             over two loopback rtl_tcp servers at the 20 m and 40 m dials:
             each prints its banner and decodes 1 channel-window with one
@@ -1631,32 +1632,40 @@ def phase_distributed(card, chunks):
     then two multicli rank processes (one gloo job, both ranks on
     cuda:0) over two loopback rtl_tcp servers (20 m and 40 m dials,
     the 120 s capture). Returns the launches of each path (each rank's
-    summed), the front end's calls by shape of each path (the dry run's
-    sharded calls, one a rank at each stage, from its constants) and the
-    summary."""
+    summed), the front end's calls by shape of each path (each rank's
+    own, summed) and the summary."""
     import socket
 
     from rtlsdr_wsprd_tpu_torch.config import BAND_TABLE
-    from rtlsdr_wsprd_tpu_torch.parallel import dryrun
     from rtlsdr_wsprd_tpu_torch.parallel.dryrun import dryrun_multichip
 
     counts: dict[str, dict] = {}
-    f1, f2 = dryrun.FRAMES1, dryrun.FRAMES2
-    shapes_by_path: dict[str, dict] = {"dryrun_multichip": {
-        ("stage1", "float32", 1, f1 * 80 + 560, f1): 2,
-        ("stage2", "float32", 1, f2 * 80 + 2320, f2): 2}}
+    shapes_by_path: dict[str, dict] = {}
     summary: dict = {"card": card}
     t0 = time.perf_counter()
     ranks = dryrun_multichip(2, "cuda:0")
     secs = time.perf_counter() - t0
+    launches = [r["launches"] for r in ranks]
     log(f"[distributed] dryrun_multichip(2, cuda:0): every check passed in "
         f"{secs:.2f} s (2 process starts included); launches by rank "
-        f"{ranks}")
-    if any(not r["direct"] or not r["fano"] for r in ranks):
-        fail(f"a dry-run rank launched polyphase.cu or the Fano kernel no "
-             f"time: {ranks}")
-    counts["dryrun_multichip"] = {k: sum(r[k] for r in ranks)
-                                  for k in ranks[0]}
+        f"{launches}; sharded polyphase calls by rank "
+        f"{[r['calls'] for r in ranks]}")
+    by = shapes_by_path["dryrun_multichip"] = {}
+    for r in ranks:
+        for key, n in r["calls"].items():
+            by[key] = by.get(key, 0) + n
+    counts["dryrun_multichip"] = {k: sum(r[k] for r in launches)
+                                  for k in launches[0]}
+    # every float32 call of a sharded decimation goes to polyphase.cu:
+    # each rank's launches are its noted calls, one a stage, no more
+    if (any(not r["fano"] or r["tc"] for r in launches)
+            or any(sorted(k[0] for k in r["calls"]) != ["stage1", "stage2"]
+                   or sum(r["calls"].values()) != r["launches"]["direct"]
+                   for r in ranks)):
+        fail(f"a dry-run rank's launches {launches} do not match its "
+             f"sharded calls {[r['calls'] for r in ranks]} (want one "
+             "polyphase.cu launch a stage, none on the tensor-core kernel, "
+             "and the Fano kernel launched)")
     summary["dryrun_s"] = round(secs, 3)
 
     bands = ("20m", "40m")

@@ -19,11 +19,13 @@ unsharded ones: the decode of the whole batch on one device, and the
 unsharded polyphase calls over the circularly extended streams (every
 frame, the wrapped ones included). Any mismatch or failed rank raises.
 Each rank reports the kernel launches of its own work (its shard's
-decode and decimations, before rank 0's reference runs).
+decode and decimations, before rank 0's reference runs) and the
+polyphase calls its sharded decimations made, by shape.
 """
 
 from __future__ import annotations
 
+import contextlib
 import socket
 import sys
 
@@ -42,8 +44,8 @@ from .distributed import (
     rank_slice,
     shutdown,
 )
+from . import streaming
 from .multichannel import decode_channels
-from .streaming import decimate_stage1_sharded, decimate_stage2_sharded
 
 MESSAGES = ("K1JT FN20 37", "K9AN EN50 33", "G4ABC IO91 30",
             "VA2GKA FN35 27")
@@ -96,6 +98,27 @@ def launch_counts() -> dict:
     return dict(polyphase_decimate.launches, fano=batched_fano.launches)
 
 
+@contextlib.contextmanager
+def _noted_shard_calls():
+    """Count the polyphase calls the time-sharded decimations make inside
+    the block by (stage, input dtype, rows, samples, frames); the
+    wrapper, which counts the launches, runs unchanged underneath."""
+    calls: dict[tuple, int] = {}
+
+    def noting(xI, xQ, filt, n_frames):
+        key = ("stage1" if filt is STAGE1 else "stage2",
+               str(xI.dtype).removeprefix("torch."),
+               *(xI.shape if xI.dim() == 2 else (1, *xI.shape)), n_frames)
+        calls[key] = calls.get(key, 0) + 1
+        return polyphase_decimate(xI, xQ, filt, n_frames)
+
+    streaming.polyphase_decimate = noting
+    try:
+        yield calls
+    finally:
+        streaming.polyphase_decimate = polyphase_decimate
+
+
 def _rank_work(rank: int, n: int, dev: torch.device) -> dict:
     B = 2 * n
     wi, wq = example_batch(B)
@@ -104,20 +127,20 @@ def _rank_work(rank: int, n: int, dev: torch.device) -> dict:
                                device=dev)
     x1, x2 = _streams(n)
     ys = []
-    for x, frames, filt, fn in ((x1, FRAMES1, STAGE1,
-                                 decimate_stage1_sharded),
-                                (x2, FRAMES2, STAGE2,
-                                 decimate_stage2_sharded)):
-        part = x[:, rank * frames * filt.R:(rank + 1) * frames * filt.R]
-        yI, yQ = fn(torch.from_numpy(part[0]).to(dev),
-                    torch.from_numpy(part[1]).to(dev))
-        ys.append(np.stack([yI.cpu().numpy(), yQ.cpu().numpy()]))
-    launches = launch_counts()
+    with _noted_shard_calls() as calls:
+        for x, frames, filt, fn in (
+                (x1, FRAMES1, STAGE1, streaming.decimate_stage1_sharded),
+                (x2, FRAMES2, STAGE2, streaming.decimate_stage2_sharded)):
+            part = x[:, rank * frames * filt.R:(rank + 1) * frames * filt.R]
+            yI, yQ = fn(torch.from_numpy(part[0]).to(dev),
+                        torch.from_numpy(part[1]).to(dev))
+            ys.append(np.stack([yI.cpu().numpy(), yQ.cpu().numpy()]))
+    mine = dict(launches=launch_counts(), calls=calls)
     got = [None] * n if rank == 0 else None
     tdist.gather_object((sl.start, sl.stop, _spot_fields(spots), ys), got,
                         dst=0)
     if rank != 0:
-        return launches
+        return mine
     starts = [g[0] for g in got] + [got[-1][1]]
     if starts[0] != 0 or starts[-1] != B or any(
             g[1] != starts[k + 1] for k, g in enumerate(got)):
@@ -139,7 +162,7 @@ def _rank_work(rank: int, n: int, dev: torch.device) -> dict:
                 np.abs(ref).max()):
             raise RuntimeError(f"sharded stage {k + 1} differs from the "
                                f"unsharded one: max |diff| {err}")
-    return launches
+    return mine
 
 
 def _rank_main(rank: int, n: int, port: int, device: str, results) -> None:
@@ -158,8 +181,9 @@ def _free_port() -> int:
 
 def dryrun_multichip(n_procs: int = 2, device=None) -> list[dict]:
     """Run ``n_procs`` ranks on ``device`` (None: the CUDA card) as the
-    module docstring says. Returns each rank's kernel launches (by
-    kernel, rank order) once every rank has finished and rank 0's checks
+    module docstring says. Returns, in rank order, each rank's
+    ``{"launches": {kernel: n}, "calls": {(stage, dtype, rows, samples,
+    frames): n}}`` once every rank has finished and rank 0's checks
     passed; raises otherwise (the other ranks are stopped)."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
@@ -173,6 +197,7 @@ def dryrun_multichip(n_procs: int = 2, device=None) -> list[dict]:
 
 
 if __name__ == "__main__":
-    counts = dryrun_multichip(int(sys.argv[1]) if len(sys.argv) > 1 else 2,
-                              sys.argv[2] if len(sys.argv) > 2 else None)
-    print(f"dryrun_multichip: OK; kernel launches by rank {counts}")
+    ranks = dryrun_multichip(int(sys.argv[1]) if len(sys.argv) > 1 else 2,
+                             sys.argv[2] if len(sys.argv) > 2 else None)
+    print("dryrun_multichip: OK; kernel launches by rank "
+          f"{[r['launches'] for r in ranks]}")

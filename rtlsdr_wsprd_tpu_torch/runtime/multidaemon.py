@@ -15,11 +15,11 @@ wiring the pieces end to end:
          kernels through a bank of folded filters)
       -> per-channel 120 s window assembly + row-wise -3 dB norm
          (rtlsdr_wsprd.c:291-305)
-      -> decode_channels_pipelined (2-deep: batch k+1's ingest and
-         host work overlap batch k's device decode — the reference's
-         RX/decode double buffer, rtlsdr_wsprd.c:75-91; the hybrid FEC
-         on ops/csrc/fano.cu), or its multi-device form, one shard of
-         each batch per device
+      -> decode_channels_pipelined_multidevice (2-deep: batch k+1's
+         ingest and host work overlap batch k's device decode — the
+         reference's RX/decode double buffer, rtlsdr_wsprd.c:75-91; the
+         hybrid FEC on ops/csrc/fano.cu), one shard of each batch per
+         device (one device unless ``devices`` names more)
       -> per-channel spot reporting.
 """
 
@@ -38,7 +38,6 @@ from ..device import resolve_device, resolve_devices
 from ..frontend.decimate import BatchedStreamingDecimator
 from ..models.decoder import Spot
 from ..parallel.multichannel import (
-    decode_channels_pipelined,
     decode_channels_pipelined_multidevice,
 )
 from ..utils.hashtable import WsprHashTable
@@ -134,7 +133,7 @@ class MultiChannelDaemon:
         capture saving, rtlsdr_wsprd.c:477-496, per channel)."""
         self.device = resolve_device(device)
         if devices == "default":
-            self.devices = None
+            self.devices = [self.device]
         elif devices == "all":
             self.devices = ([self.device] if self.device.type == "cpu"
                             else resolve_devices(None))
@@ -323,16 +322,11 @@ class MultiChannelDaemon:
                 print("Batch decode failed (stream continues): "
                       f"{exc!r}")
 
-        kw = dict(depth=self.depth, device_batch=self.device_batch,
-                  fec=self.fec, on_error=on_batch_error,
-                  strict_hash_order=self.strict_hash_order)
-        if self.devices is None:
-            pipeline = decode_channels_pipelined(
-                gen, self.options, self.hashtable, device=self.device, **kw)
-        else:
-            pipeline = decode_channels_pipelined_multidevice(
-                gen, self.options, self.hashtable, devices=self.devices,
-                **kw)
+        pipeline = decode_channels_pipelined_multidevice(
+            gen, self.options, self.hashtable, depth=self.depth,
+            device_batch=self.device_batch, fec=self.fec,
+            on_error=on_batch_error, devices=self.devices,
+            strict_hash_order=self.strict_hash_order)
         try:
             for per_channel in pipeline:
                 ts = self._ts.pop(0)

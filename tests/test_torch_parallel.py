@@ -267,8 +267,17 @@ def test_dryrun_multichip_two_cpu_ranks():
     """dryrun_multichip(2, "cpu"): two gloo ranks each decode their slice
     of a 4-window batch and run both sharded decimations; rank 0's
     checks against the unsharded decode and decimations pass. On the CPU
-    no rank launches a kernel (the plain versions run)."""
-    from rtlsdr_wsprd_tpu_torch.parallel.dryrun import dryrun_multichip
+    no rank launches a kernel (the plain versions run); each rank's
+    sharded decimations make one polyphase call a stage, at its shard
+    plus the halo."""
+    from rtlsdr_wsprd_tpu_torch.parallel.dryrun import (
+        FRAMES1,
+        FRAMES2,
+        dryrun_multichip,
+    )
 
-    assert dryrun_multichip(2, "cpu") == [
-        {"tc": 0, "direct": 0, "fano": 0}] * 2
+    assert dryrun_multichip(2, "cpu") == [{
+        "launches": {"tc": 0, "direct": 0, "fano": 0},
+        "calls": {("stage1", "float32", 1, FRAMES1 * 80 + 560, FRAMES1): 1,
+                  ("stage2", "float32", 1, FRAMES2 * 80 + 2320, FRAMES2): 1},
+    }] * 2
