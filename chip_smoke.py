@@ -63,6 +63,22 @@ Phases, in order; any failure exits non-zero before the last line:
             the host result, with windows/s; then one run in the mode
             fec="auto" picks under torch.profiler (host time per
             labelled range, the card's kernel time and busy share).
+   dense    the dense program on the batch's first 64 windows:
+            multichannel_decode_device once (device time between CUDA
+            events, peak memory, one Fano launch over 64 x 128 attempt
+            lanes); decode_channels(sharding=channel_sharding(make_mesh(
+            ["cuda:0"]))), the Fano kernel's launches counted from 0
+            around its 3 timed runs, its spot lists equal to the staged
+            host decode's in message, jitter and cycles (freq within
+            0.5e-6 MHz, snr 0.5 dB, dt 0.05 s), every expected message
+            found, none on a noise window, its windows/s beside the
+            staged host and hybrid rates on the same windows; the step
+            on two shards of cuda:0 equal to one shard in every
+            ChannelDecode field; WsprDecoder(staged=False) on windows
+            0-3 equal to the mesh path's spots; the step's own Fano
+            lanes through the fano phase's checks (plain at 16 and 64,
+            native at 256 and 10000) and times; one mesh-path run under
+            torch.profiler.
 7. daemon   the two daemons and their CLIs, as a user starts them,
             each path driven with every kernel's count set to 0 just
             before it and read just after: cli -t (Self-test SUCCESS!);
@@ -106,9 +122,12 @@ Phases, in order; any failure exits non-zero before the last line:
             a step for all 3 dials and stage 2 on polyphase.cu.
 10. distributed
             dryrun_multichip(2, cuda:0) (two gloo ranks on the card, each
-            decoding its slice and running both sharded decimations, rank
-            0 checking them against the unsharded ones; each rank's
-            launches must be its own noted sharded calls); two multicli
+            decoding its slice, staged and through the dense step (quick
+            and full schedule), and running both sharded decimations,
+            rank 0 checking them against the unsharded ones, the dense
+            steps field for field; each rank's launches must be its own
+            noted sharded calls, and its dense runs decode both its
+            windows); two multicli
             rank processes (--coordinator, --nprocs 2, --devices all)
             over two loopback rtl_tcp servers at the 20 m and 40 m dials:
             each prints its banner and decodes 1 channel-window with one
@@ -702,14 +721,8 @@ def phase_fano(dev, name, card, wi, wq, opts, DB):
     """The Fano kernel against its plain version and the native decoder
     on the synthetic mix and the decode's own calls, with times and
     bounds; returns one row per (input, budget) and the calibration."""
-    from rtlsdr_wsprd_tpu_torch import native
     from rtlsdr_wsprd_tpu_torch.ops import calibrate
-    from rtlsdr_wsprd_tpu_torch.ops.fano import (
-        METTAB,
-        batched_fano,
-        batched_fano_plain,
-        device_mettab,
-    )
+    from rtlsdr_wsprd_tpu_torch.ops.fano import batched_fano, device_mettab
 
     # measured at the first decode with fec="auto" (the front-end phase)
     cal = calibrate.get_fec_calibration(dev)
@@ -736,92 +749,113 @@ def phase_fano(dev, name, card, wi, wq, opts, DB):
         inputs["decode attempts, heaviest call"] = calls[heavy]
     log(f"[fano] flat steps of the decode's calls at budget "
         f"{cal.device_maxcycles}: {work}")
+    rows = []
+    for label, (syms, valid) in inputs.items():
+        rows += fano_input_rows(dev, name, label, syms, valid, cal)
+    return rows, cal
+
+
+def fano_input_rows(dev, name, label, syms, valid, cal, phase: str = "fano"):
+    """The Fano kernel on one input (symbols uint8[n, 162], valid
+    bool[n]) on ``dev``: against the plain version on the card at
+    budgets 16 and 64 (every field and the step counts) and against
+    native.fano_decode at 256 and 10000, failing on any mismatch; then
+    one row per budget (16, 64, 256 and the calibrated one) with the
+    kernel's device time, the plain version's (at 16), the native
+    decoder's host time and the bound."""
+    from rtlsdr_wsprd_tpu_torch import native
+    from rtlsdr_wsprd_tpu_torch.ops.fano import (
+        METTAB,
+        batched_fano,
+        batched_fano_plain,
+        device_mettab,
+    )
+
+    mt = device_mettab(dev)
     bw = card_peaks(name)[2]
     int_rate = int32_rate(name)
     threads = os.cpu_count() or 1
     cycles_per_ms = _spin_cycles_per_ms()
     budgets = sorted(set(FANO_BUDGETS) | {cal.device_maxcycles})
     rows = []
-    for label, (syms, valid) in inputs.items():
-        s = torch.from_numpy(syms).to(dev)
-        v = torch.from_numpy(valid).to(dev)
-        live = int(valid.sum())
-        # kernel vs plain on the card: every field and the step counts
-        plain_ms = None
-        for mc in (16, 64):
-            k = batched_fano(s, mt, 60, mc, v, steps=True)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            p = batched_fano_plain(s, mt, 60, mc, v, steps=True)
-            torch.cuda.synchronize()
-            if mc == 16:
-                plain_ms = 1e3 * (time.perf_counter() - t0)
-            bad = {f: int((getattr(k, f) != getattr(p, f)).sum())
-                   for f in (*FANO_FIELDS, "steps")}
-            log(f"[fano] {label}: kernel vs plain at {mc}: mismatches {bad}")
-            if any(bad.values()):
-                fail(f"fano kernel vs plain, {label} at {mc}: {bad}")
-        # kernel vs the native decoder, lane by lane
-        for mc in (256, 10000):
-            k = batched_fano(s, mt, 60, mc, v)
-            got = {f: getattr(k, f).cpu().numpy()[valid] for f in FANO_FIELDS}
-            ok, data, cyc, met, mnp = native.fano_decode_many(
-                syms[valid], METTAB, 60, mc, threads=threads)
-            bad = {"success": int((got["success"] != ok).sum()),
-                   "cycles": int((got["cycles"] != cyc).sum()),
-                   "metric": int((got["metric"] != met).sum()),
-                   "maxnp": int((got["maxnp"] != mnp).sum()),
-                   "data": int((got["data"][ok] != data[ok]).sum())}
-            log(f"[fano] {label}: kernel vs native at {mc}: mismatches "
-                f"{bad}; {int(ok.sum())} of {live} lanes decode")
-            if any(bad.values()):
-                fail(f"fano kernel vs native, {label} at {mc}: {bad}")
-        for mc in budgets:
-            k = batched_fano(s, mt, 60, mc, v, steps=True)
-            steps = k.steps.cpu().numpy()
-            looks, back, moved = fano_step_kinds(k.cycles.cpu().numpy(),
-                                                 steps, mc)
-            ops = (FANO_LOOK_OPS * int(looks.sum()) + FANO_BACK_OPS
-                   * int(back.sum()) + FANO_MOVE_OPS * int(moved.sum()))
-            ms = cuda_ms(lambda: batched_fano(s, mt, 60, mc, v),
-                         reps=5 if mc > 64 else 25)
-            t0 = time.perf_counter()
-            native.fano_decode_many(syms[valid], METTAB, 60, mc,
-                                    threads=threads)
-            host_ms = 1e3 * (time.perf_counter() - t0)
-            n = syms.shape[0]
-            nbytes = n * 162 + METTAB.nbytes + n + n * (11 + 1 + 3 * 4)
-            bytes_ms = nbytes / bw * 1e3
-            ops_ms = ops / int_rate * 1e3
-            row = dict(input=label, lanes=n, live_lanes=live, maxcycles=mc,
-                       calibrated=mc == cal.device_maxcycles, ms=ms,
-                       plain_ms=plain_ms if mc == 16 else None,
-                       host_ms=host_ms, host_threads=threads,
-                       steps_total=int(steps.sum()),
-                       steps_max_lane=int(steps.max()),
-                       forward_looks=int(looks.sum()),
-                       backtrack_moves=int(back.sum()),
-                       forward_moves_least=int(moved.sum()), ops=ops,
-                       cycles_per_step=ms * cycles_per_ms / int(steps.max()),
-                       bytes=nbytes,
-                       bytes_ms=bytes_ms, ops_ms=ops_ms,
-                       bound_ms=max(bytes_ms, ops_ms),
-                       bound_by="bytes" if bytes_ms >= ops_ms
-                       else "operations", mismatches=0)
-            rows.append(row)
-            log(f"[fano] {label} x {n} lanes at {mc}: kernel {ms:.4f} ms, "
-                f"plain {'-' if row['plain_ms'] is None else round(plain_ms, 1)}"
-                f" ms, native on {threads} threads {host_ms:.3f} ms, bound "
-                f"{row['bound_ms']:.5f} ms ({row['bound_by']}; {ops} "
-                f"integer operations: {row['forward_looks']} forward looks, "
-                f"at least {row['forward_moves_least']} of them moving, "
-                f"{row['backtrack_moves']} backtrack moves; "
-                f"{row['steps_total']} steps, slowest lane "
-                f"{row['steps_max_lane']}: "
-                f"{row['cycles_per_step']:.1f} cycles a step at "
-                f"{cycles_per_ms / 1e6:.3f} GHz)")
-        del s, v
-    return rows, cal
+    s = torch.from_numpy(syms).to(dev)
+    v = torch.from_numpy(valid).to(dev)
+    live = int(valid.sum())
+    # kernel vs plain on the card: every field and the step counts
+    plain_ms = None
+    for mc in (16, 64):
+        k = batched_fano(s, mt, 60, mc, v, steps=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = batched_fano_plain(s, mt, 60, mc, v, steps=True)
+        torch.cuda.synchronize()
+        if mc == 16:
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+        bad = {f: int((getattr(k, f) != getattr(p, f)).sum())
+               for f in (*FANO_FIELDS, "steps")}
+        log(f"[{phase}] {label}: kernel vs plain at {mc}: mismatches {bad}")
+        if any(bad.values()):
+            fail(f"fano kernel vs plain, {label} at {mc}: {bad}")
+    # kernel vs the native decoder, lane by lane
+    for mc in (256, 10000):
+        k = batched_fano(s, mt, 60, mc, v)
+        got = {f: getattr(k, f).cpu().numpy()[valid] for f in FANO_FIELDS}
+        ok, data, cyc, met, mnp = native.fano_decode_many(
+            syms[valid], METTAB, 60, mc, threads=threads)
+        bad = {"success": int((got["success"] != ok).sum()),
+               "cycles": int((got["cycles"] != cyc).sum()),
+               "metric": int((got["metric"] != met).sum()),
+               "maxnp": int((got["maxnp"] != mnp).sum()),
+               "data": int((got["data"][ok] != data[ok]).sum())}
+        log(f"[{phase}] {label}: kernel vs native at {mc}: mismatches "
+            f"{bad}; {int(ok.sum())} of {live} lanes decode")
+        if any(bad.values()):
+            fail(f"fano kernel vs native, {label} at {mc}: {bad}")
+    for mc in budgets:
+        k = batched_fano(s, mt, 60, mc, v, steps=True)
+        steps = k.steps.cpu().numpy()
+        looks, back, moved = fano_step_kinds(k.cycles.cpu().numpy(),
+                                             steps, mc)
+        ops = (FANO_LOOK_OPS * int(looks.sum()) + FANO_BACK_OPS
+               * int(back.sum()) + FANO_MOVE_OPS * int(moved.sum()))
+        ms = cuda_ms(lambda: batched_fano(s, mt, 60, mc, v),
+                     reps=5 if mc > 64 else 25)
+        t0 = time.perf_counter()
+        native.fano_decode_many(syms[valid], METTAB, 60, mc,
+                                threads=threads)
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        n = syms.shape[0]
+        nbytes = n * 162 + METTAB.nbytes + n + n * (11 + 1 + 3 * 4)
+        bytes_ms = nbytes / bw * 1e3
+        ops_ms = ops / int_rate * 1e3
+        row = dict(input=label, lanes=n, live_lanes=live, maxcycles=mc,
+                   calibrated=mc == cal.device_maxcycles, ms=ms,
+                   plain_ms=plain_ms if mc == 16 else None,
+                   host_ms=host_ms, host_threads=threads,
+                   steps_total=int(steps.sum()),
+                   steps_max_lane=int(steps.max()),
+                   forward_looks=int(looks.sum()),
+                   backtrack_moves=int(back.sum()),
+                   forward_moves_least=int(moved.sum()), ops=ops,
+                   cycles_per_step=ms * cycles_per_ms / int(steps.max()),
+                   bytes=nbytes,
+                   bytes_ms=bytes_ms, ops_ms=ops_ms,
+                   bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms
+                   else "operations", mismatches=0)
+        rows.append(row)
+        log(f"[{phase}] {label} x {n} lanes at {mc}: kernel {ms:.4f} ms, "
+            f"plain {'-' if row['plain_ms'] is None else round(plain_ms, 1)}"
+            f" ms, native on {threads} threads {host_ms:.3f} ms, bound "
+            f"{row['bound_ms']:.5f} ms ({row['bound_by']}; {ops} "
+            f"integer operations: {row['forward_looks']} forward looks, "
+            f"at least {row['forward_moves_least']} of them moving, "
+            f"{row['backtrack_moves']} backtrack moves; "
+            f"{row['steps_total']} steps, slowest lane "
+            f"{row['steps_max_lane']}: "
+            f"{row['cycles_per_step']:.1f} cycles a step at "
+            f"{cycles_per_ms / 1e6:.3f} GHz)")
+    return rows
 
 
 def _fields(spots):
@@ -915,8 +949,202 @@ def phase_decode(dev, card, wi, wq, calls, cal, DB: int = 128):
                 hybrid_launches=launches, host_spots=host)
 
 
+DENSE_B = 64  # windows of the dense phase (the batch's first)
+
+
+def _dense_mismatches(got, want) -> list[int]:
+    """Channels whose spot lists differ beyond the JAX package's
+    dense-vs-staged tolerances (tests/test_multichannel.py): message,
+    jitter and cycles equal, freq within 0.5e-6 MHz, snr within 0.5 dB,
+    dt within 0.05 s."""
+    bad = [b for b, (g, w) in enumerate(zip(got, want))
+           if len(g) != len(w) or any(
+               (x.message, x.jitter, x.cycles)
+               != (y.message, y.jitter, y.cycles)
+               or abs(x.freq - y.freq) > 0.5e-6 or abs(x.snr - y.snr) > 0.5
+               or abs(x.dt - y.dt) > 0.05 for x, y in zip(g, w))]
+    return bad + list(range(min(len(got), len(want)),
+                            max(len(got), len(want))))
+
+
+def phase_dense(dev, name, card, wi, wq, calls, host_spots, cal):
+    """The dense program on the first DENSE_B windows of the batch: one
+    multichannel_decode_device call (device time, peak memory, Fano
+    launches); decode_channels(sharding=channel_sharding(make_mesh(
+    ["cuda:0"]))), its main path, with the Fano kernel's launches counted
+    from 0 around its timed runs, its spot lists held against the staged
+    host decode of the same windows (_dense_mismatches) and its windows/s
+    beside the staged host and hybrid rates on them; the step on two
+    shards of cuda:0 equal in every ChannelDecode field to one shard;
+    WsprDecoder(staged=False) on 4 windows against the mesh path's
+    spots; and the step's own Fano lanes through fano_input_rows. One
+    more mesh-path run goes under torch.profiler (phase_profile). Returns the
+    Fano rows of the dense call and the launches of each path."""
+    from rtlsdr_wsprd_tpu_torch.config import DecoderOptions
+    from rtlsdr_wsprd_tpu_torch.models.decoder import WsprDecoder
+    from rtlsdr_wsprd_tpu_torch.ops.fano import batched_fano
+    from rtlsdr_wsprd_tpu_torch.parallel import multichannel as mc
+    from rtlsdr_wsprd_tpu_torch.parallel.mesh import (
+        channel_sharding,
+        make_mesh,
+    )
+
+    B = DENSE_B
+    wi, wq = wi[:B], wq[:B]
+    opts = DecoderOptions()
+    dev = torch.device("cuda", 0)
+    kw = dict(mc._decode_kw(opts), max_attempts=mc.DEFAULT_MAX_ATTEMPTS,
+              delta=opts.delta,
+              maxcycles=mc._device_fano_budget(opts.maxcycles, dev))
+    si = torch.from_numpy(wi).to(dev)
+    sq = torch.from_numpy(wq).to(dev)
+    md = torch.full((B,), opts.maxdrift, dtype=torch.int32, device=dev)
+
+    # one step with its Fano call's lanes caught (and a warm-up)
+    real = mc.batched_fano
+    caught = []
+
+    def catching(symbols, mettab, **fkw):
+        caught.append((symbols.cpu().numpy(), fkw["valid"].cpu().numpy()))
+        return real(symbols, mettab, **fkw)
+
+    mc.batched_fano = catching
+    try:
+        mc.multichannel_decode_device(si, sq, md, **kw)
+        torch.cuda.synchronize()
+    finally:
+        mc.batched_fano = real
+    if len(caught) != 1 or caught[0][0].shape != (
+            B * mc.DEFAULT_MAX_ATTEMPTS, 162):
+        fail(f"the dense step made {len(caught)} Fano calls of "
+             f"{[c[0].shape for c in caught]}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    batched_fano.launches = 0
+    out = mc.multichannel_decode_device(si, sq, md, **kw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    step_launches = batched_fano.launches
+    n_gate = out.n_gate.cpu().numpy()
+    live = int(out.sel_valid.sum())
+    if step_launches != 1:
+        fail(f"the dense step launched the Fano kernel {step_launches} "
+             "times")
+    log(f"[dense] multichannel_decode_device B={B} (chunks of "
+        f"{mc.DENSE_WINDOWS} windows, max_attempts "
+        f"{mc.DEFAULT_MAX_ATTEMPTS}, Fano budget {kw['maxcycles']}): "
+        f"peak memory {peak / 2**30:.2f} GiB above the "
+        f"{base / 2**30:.2f} GiB held before it; 1 Fano launch of "
+        f"{B * mc.DEFAULT_MAX_ATTEMPTS} lanes, {live} live; gate-passing "
+        f"attempts a window max {int(n_gate.max())}, total "
+        f"{int(n_gate.sum())} ({card})")
+    del out
+    step_ms = cuda_ms(lambda: mc.multichannel_decode_device(si, sq, md, **kw),
+                      reps=5, warm=1)
+    log(f"[dense] multichannel_decode_device B={B}: {step_ms:.2f} ms of "
+        f"device time between CUDA events (median of 5) ({card})")
+
+    # the main path: the mesh path's host loop on one shard of the card
+    mesh1 = make_mesh(["cuda:0"])
+
+    def dense_run():
+        got = mc.decode_channels(wi, wq, opts,
+                                 sharding=channel_sharding(mesh1))
+        torch.cuda.synchronize()
+        return got
+
+    t0 = time.perf_counter()
+    spots = dense_run()
+    log(f"[dense] decode_channels(sharding=[cuda:0]): warm-up run "
+        f"{time.perf_counter() - t0:.2f} s")
+    counts = {}
+    batched_fano.launches = 0
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = dense_run()
+        secs.append(time.perf_counter() - t0)
+        if _fields(got) != _fields(spots):
+            fail("dense decode runs disagree")
+    counts["dense"] = {"fano": batched_fano.launches}
+    if not counts["dense"]["fano"]:
+        fail("the dense decode launched the Fano kernel no time")
+    dense_rate = B / statistics.median(secs)
+    bad = _dense_mismatches(spots, host_spots[:B])
+    if bad:
+        b0 = bad[0]
+        fail(f"dense spots differ from the staged host decode in windows "
+             f"{bad[:10]}: {_fields(spots[b0:b0 + 1])} != "
+             f"{_fields(host_spots[b0:b0 + 1])}")
+    missing = [k for k in range(B) if k % 4 != 3 and calls[k % 4]
+               not in [x.message for x in spots[k]]]
+    noisy = [k for k in range(B) if k % 4 == 3 and spots[k]]
+    if missing or noisy:
+        fail(f"dense decode: strong message missing in windows "
+             f"{missing[:10]}, spots on noise windows {noisy[:10]}")
+    n_float = sum(_fields([x]) != _fields([y])
+                  for x, y in zip(spots, host_spots[:B]))
+    staged = {}
+    for fec in ("host", "hybrid"):
+        mc.decode_channels(wi, wq, opts, device_batch=DENSE_B, device=dev,
+                           fec=fec)
+        t = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            mc.decode_channels(wi, wq, opts, device_batch=DENSE_B,
+                               device=dev, fec=fec)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter() - t0)
+        staged[fec] = B / statistics.median(t)
+    log(f"[dense] decode_channels(sharding=[cuda:0]) B={B}: runs "
+        f"{[round(x, 3) for x in secs]} s = {dense_rate:.1f} decode "
+        f"windows/s; staged on the same windows: host {staged['host']:.1f}, "
+        f"hybrid {staged['hybrid']:.1f} windows/s ({card}); "
+        f"{counts['dense']['fano']} Fano launches over the 3 runs; spots "
+        f"{sum(len(ch) for ch in spots)}, equal to the staged host decode "
+        f"in message, jitter and cycles ({n_float} windows differ in a "
+        f"float field, all within the tolerances)")
+
+    phase_profile(dense_run, card, label="dense profile")
+
+    # two shards of the card against one, every field
+    mesh2 = make_mesh(["cuda:0", "cuda:0"])
+    steps = [mc._mesh_step(*mc.shard_windows(wi, wq, m),
+                           channel_sharding(m), opts.maxdrift, kw)
+             for m in (mesh1, mesh2)]
+    diff = [f for f, x, y in zip(mc.ChannelDecode._fields, *steps)
+            if not np.array_equal(x, y)]
+    if diff:
+        fail(f"the dense step on two shards differs from one in {diff}")
+    log("[dense] the step on 2 shards of cuda:0 equals 1 shard in every "
+        "ChannelDecode field")
+
+    # the per-window dense decoder against the mesh path
+    batched_fano.launches = 0
+    dec = WsprDecoder(opts, staged=False, device=dev)
+    per = [dec.decode(wi[k], wq[k]) for k in range(4)]
+    counts["decode_window (4 windows)"] = {"fano": batched_fano.launches}
+    bad = _dense_mismatches(per, spots[:4])
+    if bad:
+        fail(f"WsprDecoder(staged=False) differs from the mesh path in "
+             f"windows {bad}: {_fields(per)} != {_fields(spots[:4])}")
+    log(f"[dense] WsprDecoder(staged=False) on windows 0-3 equals the mesh "
+        f"path's spots ({sum(len(x) for x in per)} spots, "
+        f"{batched_fano.launches} Fano launches)")
+
+    rows = fano_input_rows(dev, name, "dense call", *caught[0], cal,
+                           phase="dense")
+    log(json.dumps({"dense": {
+        "card": card, "B": B, "step_ms": step_ms,
+        "step_peak_bytes": peak, "decode_windows_per_s": dense_rate,
+        "staged_host_windows_per_s": staged["host"],
+        "staged_hybrid_windows_per_s": staged["hybrid"],
+        "fano_launches": counts}}))
+    return rows, counts, dense_rate
+
+
 RANGES = ("stage_a", "stage_b_launch", "stage_b_wait", "fec_host",
-          "fec_device", "fec_host_finish", "spots", "subtract")
+          "fec_device", "fec_host_finish", "spots", "subtract", "dense_step")
 
 
 def phase_profile(run, card, label: str = "profile"):
@@ -1649,7 +1877,11 @@ def phase_distributed(card, chunks):
     log(f"[distributed] dryrun_multichip(2, cuda:0): every check passed in "
         f"{secs:.2f} s (2 process starts included); launches by rank "
         f"{launches}; sharded polyphase calls by rank "
-        f"{[r['calls'] for r in ranks]}")
+        f"{[r['calls'] for r in ranks]}; windows each dense run (quick, "
+        f"full schedule) decoded by rank "
+        f"{[r['dense_windows_decoded'] for r in ranks]}")
+    if any(r["dense_windows_decoded"] != [2, 2] for r in ranks):
+        fail("a dry-run rank's dense steps did not decode both its windows")
     by = shapes_by_path["dryrun_multichip"] = {}
     for r in ranks:
         for key, n in r["calls"].items():
@@ -1764,6 +1996,8 @@ def main() -> None:
     fano_rows, cal = phase_fano(dev, name, card, wi, wq, DecoderOptions(),
                                 128)
     dec = phase_decode(dev, card, wi, wq, calls, cal)
+    dense_rows, dense_counts, dec["dense_B64"] = phase_dense(
+        dev, name, card, wi, wq, calls, dec["host_spots"], cal)
     md_counts, _ = phase_multidevice(dev, card, wi, wq, dec.pop("host_spots"))
     del wi, wq
     daemon_counts, daemon_shapes = phase_daemon(dev, card, chunks, refI,
@@ -1817,15 +2051,16 @@ def main() -> None:
         main_input = "decode attempts"
     fano_main = next(r for r in fano_rows if r["input"] == main_input
                      and r["calibrated"])
+    fano_paths = {**dense_counts, **paths}
     kernels.append({
         "name": "batched_fano",
         "route": "cuda",
         "source": "rtlsdr_wsprd_tpu_torch/ops/csrc/fano.cu",
         "replaces": "rtlsdr_wsprd_tpu/ops/fano.py:91",
         "launches": (dec["hybrid_launches"]
-                     + sum(c["fano"] for c in paths.values())),
+                     + sum(c["fano"] for c in fano_paths.values())),
         "launches_by_path": {"decode (4 hybrid runs)": dec["hybrid_launches"],
-                             **{p: c["fano"] for p, c in paths.items()}},
+                             **{p: c["fano"] for p, c in fano_paths.items()}},
         "mismatches": 0,
         "max_abs_err": 0,
         "ms": fano_main["ms"],
@@ -1838,7 +2073,7 @@ def main() -> None:
         "bound_by": fano_main["bound_by"],
         "host_ms": fano_main["host_ms"],
         "library_ms": None,
-        "runs": fano_rows,
+        "runs": fano_rows + dense_rows,
     })
     log(json.dumps({"decode_windows_per_s": {
         k: round(v, 1) for k, v in dec.items() if k != "hybrid_launches"},

@@ -6,6 +6,7 @@ imports neither JAX nor anything of it and keeps its own copies of the
 framework-free modules (constants, codecs, filter design, synthesis).
 
 * ``frontend`` — the 2.4 Msps -> 375 sps two-stage polyphase decimator
+                 and the wideband channelizer
                  on two hand-written CUDA kernels: uint8 stage 1 on the
                  tensor cores (``frontend/csrc/polyphase_tc.cu``), float32
                  stage 1 and stage 2 on the FP32 cores
@@ -15,9 +16,15 @@ framework-free modules (constants, codecs, filter design, synthesis).
                  batched Fano decoder on a hand-written CUDA kernel
                  (``ops/csrc/fano.cu``), the hybrid device/host FEC
                  split and its calibration.
-* ``parallel`` — the staged single-device multi-channel decode and its
-                 pipelined stream decode.
-* ``models``   — ``Spot`` and the ``WsprDecoder`` facade.
+* ``parallel`` — the multi-channel decode: the staged path, its
+                 pipelined stream decode and their multi-device forms;
+                 the dense device step (``multichannel_decode_device``)
+                 and its mesh path (``mesh.py``,
+                 ``decode_channels(sharding=...)``); the multi-host
+                 runtime on ``torch.distributed`` (``distributed``, the
+                 time-sharded front end ``streaming``, ``dryrun``).
+* ``models``   — ``Spot``, the dense per-window ``decode_window`` and the
+                 ``WsprDecoder`` facade.
 * ``runtime``  — IQ file IO, synthesis, sample sources (rtl_tcp, file,
                  synthetic), raw banks, wsprnet reporting, and the two
                  daemons: ``scheduler.WsprDaemon`` (one dongle) and

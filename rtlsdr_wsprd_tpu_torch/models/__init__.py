@@ -1,3 +1,3 @@
-"""The decoder facade."""
+"""The decoder facade and the dense per-window decoder."""
 
-from .decoder import Spot, WsprDecoder  # noqa: F401
+from .decoder import Spot, WsprDecoder, decode_window  # noqa: F401

@@ -6,7 +6,12 @@ reference r(t), estimate the channel's complex envelope
 c(t) = LPF[s(t) * conj(r(t))] with a 360-tap half-sine FIR, and
 subtract c(t) * r(t) with partial-sum edge normalization. Every
 function here is batched over rows (one decode per row); the FIR is
-the JAX package's block-Toeplitz matmul.
+the JAX package's block-Toeplitz matmul. ``subtract_signal2_many``
+masks rows (the dense path's subtraction rounds on host copies),
+``subtract_rows`` updates rows of a device-resident batch (the staged
+path), and ``subtract_signal`` is the simpler per-symbol variant the
+reference defines but never calls (wsprd/wsprd.c:263-312), kept for
+the JAX package's API.
 """
 
 from __future__ import annotations
@@ -138,6 +143,47 @@ def subtract_signal2(sig_i, sig_q, f0, shift, drift, symbols):
     full_q.scatter_(1, pos, di)
     return (sig_i - full_i[:, _PAD:_PAD + SIGNAL_SAMPLES],
             sig_q - full_q[:, _PAD:_PAD + SIGNAL_SAMPLES])
+
+
+def subtract_signal2_many(sig_i, sig_q, f0, shift, drift, symbols, enable):
+    """``subtract_signal2`` on rows whose ``enable`` (bool (R,)) is set;
+    the other rows pass through unchanged (padding of partial rounds).
+    Decodes of the SAME window go in separate sequential calls, each
+    reading the previous result (wsprd/wsprd.c:781-789)."""
+    ni, nq = subtract_signal2(sig_i, sig_q, f0, shift, drift, symbols)
+    en = enable[:, None]
+    return torch.where(en, ni, sig_i), torch.where(en, nq, sig_q)
+
+
+def subtract_signal(sig_i, sig_q, f0, shift, drift, symbols):
+    """Per-symbol amplitude estimate and subtraction, one decode per row
+    (wsprd/wsprd.c:263-312; defined but unused in the reference): the
+    per-symbol phasor restarts at each symbol and uses (i - 81)/81 for
+    the drift, like sync (wsprd/wsprd.c:274)."""
+    R = sig_i.shape[0]
+    dev = sig_i.device
+    i = torch.arange(NSYM, dtype=torch.float32, device=dev)
+    cs = symbols.to(torch.float32)
+    fsym = (f0[:, None] + (drift[:, None] / 2.0) * (i - 81.0) / 81.0
+            + (cs - 1.5) * DF)                               # (R, 162)
+    phase = (TWOPIDT * fsym)[..., None] * torch.arange(
+        NSPERSYM, dtype=torch.float32, device=dev)           # (R, 162, 256)
+    er, ei = torch.cos(phase), torch.sin(phase)
+    k = (shift.to(torch.int64)[:, None, None]
+         + NSPERSYM * torch.arange(NSYM, device=dev)[:, None]
+         + torch.arange(NSPERSYM, device=dev))
+    ok = (k > 0) & (k < SIGNAL_SAMPLES)
+    kc = torch.clamp(k, 0, SIGNAL_SAMPLES - 1).reshape(R, -1)
+    zero = torch.zeros((), dtype=sig_i.dtype, device=dev)
+    sr = torch.where(ok, torch.gather(sig_i, 1, kc).reshape(k.shape), zero)
+    si = torch.where(ok, torch.gather(sig_q, 1, kc).reshape(k.shape), zero)
+    # amp = mean(s * conj(e)) per symbol
+    ar = torch.sum(sr * er + si * ei, dim=2) / NSPERSYM      # (R, 162)
+    ai = torch.sum(si * er - sr * ei, dim=2) / NSPERSYM
+    dr = ar[..., None] * er - ai[..., None] * ei
+    di = ar[..., None] * ei + ai[..., None] * er
+    return (sig_i.scatter_add(1, kc, torch.where(ok, -dr, zero).reshape(R, -1)),
+            sig_q.scatter_add(1, kc, torch.where(ok, -di, zero).reshape(R, -1)))
 
 
 def subtract_rows(sig_i, sig_q, bidx, f0, shift, drift, symbols, enable):

@@ -13,8 +13,12 @@ against a static offset-shifted tone matrix, and the leftover unit
 phase vanishes under the magnitude. The products are plain large
 ``torch.matmul`` calls in float32 (TF32 off, see device.py).
 
-Only the lane variants of the JAX module are ported: the staged decode
-compacts every valid candidate across the window batch into lanes.
+The lane variants (``fine_sync_lanes``, ``soft_symbols_lanes``) serve
+both batched decodes: the staged one compacts the valid candidates of a
+window batch into lanes, the dense one (parallel/multichannel.py
+``multichannel_decode_device``) runs every candidate slot of every
+window as a lane. ``fine_sync`` and ``soft_symbols_jittered`` keep the
+JAX package's one-window signatures (the per-window ``decode_window``).
 """
 
 from __future__ import annotations
@@ -72,6 +76,20 @@ def _padded_signals(sig_i: torch.Tensor, sig_q: torch.Tensor):
         x[:, 0] = 0.0
         return F.pad(x, (_PAD, _PAD))
     return pad(sig_i), pad(sig_q)
+
+
+def _padded_signal(sig_i: torch.Tensor, sig_q: torch.Tensor):
+    """One window's (N,) planes -> (N + 2*_PAD,), as ``_padded_signals``."""
+    pi, pq = _padded_signals(sig_i[None], sig_q[None])
+    return pi[0], pq[0]
+
+
+def _candidate_windows(pi: torch.Tensor, pq: torch.Tensor,
+                       shifts: torch.Tensor):
+    """One window's padded planes, (C,) base shifts -> (C, WLEN) windows
+    starting at shift - HALF_SPAN."""
+    lane_w = torch.zeros_like(shifts, dtype=torch.int64)
+    return _lane_windows(pi[None], pq[None], lane_w, shifts)
 
 
 def _lane_windows(pi: torch.Tensor, pq: torch.Tensor, lane_w: torch.Tensor,
@@ -212,6 +230,14 @@ def fine_sync_lanes(sig_i, sig_q, lane_w, freq, shift, drift,
     return _fine_sync_core(wr, wi, freq, shift, drift, lagstep)
 
 
+def fine_sync(sig_i, sig_q, freq, shift, drift, lagstep: int = 8) -> FineSync:
+    """``fine_sync_lanes`` for the C candidates of one window: sig_i/sig_q
+    (N,) planar, freq/shift/drift (C,)."""
+    pi, pq = _padded_signal(sig_i, sig_q)
+    wr, wi = _candidate_windows(pi, pq, shift)
+    return _fine_sync_core(wr, wi, freq, shift, drift, lagstep)
+
+
 def jitter_offsets(iifac: int = 3, quickmode: bool = False) -> np.ndarray:
     """The DT peak-up schedule 0, -1, +1, -2, +2, ... times iifac
     (wsprd/wsprd.c:741-745); quickmode tries only the first."""
@@ -265,4 +291,14 @@ def soft_symbols_lanes(sig_i, sig_q, lane_w, freq, shift, drift,
     window batch (see fine_sync_lanes)."""
     pi, pq = _padded_signals(sig_i, sig_q)
     wr, wi = _lane_windows(pi, pq, lane_w, shift)
+    return _soft_symbols_core(wr, wi, freq, drift, iifac, quickmode, symfac)
+
+
+def soft_symbols_jittered(sig_i, sig_q, freq, shift, drift, iifac: int = 3,
+                          quickmode: bool = False,
+                          symfac: int = 50) -> JitteredSymbols:
+    """``soft_symbols_lanes`` for the C candidates of one window
+    (wsprd/wsprd.c:739-766 jitter loop; mode-2 body :219-256)."""
+    pi, pq = _padded_signal(sig_i, sig_q)
+    wr, wi = _candidate_windows(pi, pq, shift)
     return _soft_symbols_core(wr, wi, freq, drift, iifac, quickmode, symfac)

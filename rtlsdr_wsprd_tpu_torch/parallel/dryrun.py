@@ -3,24 +3,30 @@
     python -m rtlsdr_wsprd_tpu_torch.parallel.dryrun [N] [DEVICE]
 
 The port's analogue of the JAX package's ``__graft_entry__.py``
-``dryrun_multichip``, without the dense mesh program (the port leaves
-that out). ``dryrun_multichip`` spawns ``n_procs`` processes that join
-one ``torch.distributed`` job (gloo, on localhost) and all work on
-``device``: the CPU in the tests, ``cuda:0`` on a one-card host (the
-ranks share the card). Each rank
+``dryrun_multichip``. ``dryrun_multichip`` spawns ``n_procs`` processes
+that join one ``torch.distributed`` job (gloo, on localhost) and all
+work on ``device``: the CPU in the tests, ``cuda:0`` on a one-card host
+(the ranks share the card). Each rank
 
 - decodes its ``rank_slice`` of a small synthetic window batch through
-  ``decode_local_shard`` (quick mode, a small Fano budget), and
+  ``decode_local_shard`` (quick mode, a small Fano budget),
+- runs the dense decode step (``multichannel_decode_device``) on that
+  slice twice, as the JAX dry run runs its sharded step: quick mode
+  (lagstep 16, 16 attempts, Fano budget 64), then the full schedule
+  (lagstep 8, 32 attempts, budget DEVICE_MAXCYCLES), and
 - runs both time-sharded decimations (``streaming.py``) on its shard of
   a seeded stream, trading halos with its ring neighbours.
 
 Rank 0 gathers every rank's results and holds them against the
-unsharded ones: the decode of the whole batch on one device, and the
-unsharded polyphase calls over the circularly extended streams (every
-frame, the wrapped ones included). Any mismatch or failed rank raises.
+unsharded ones: the staged decode of the whole batch on one device,
+the dense step of the whole batch (every ChannelDecode field equal),
+and the unsharded polyphase calls over the circularly extended streams
+(every frame, the wrapped ones included). Any mismatch or failed rank
+raises.
 Each rank reports the kernel launches of its own work (its shard's
-decode and decimations, before rank 0's reference runs) and the
-polyphase calls its sharded decimations made, by shape.
+decodes and decimations, before rank 0's reference runs), the polyphase
+calls its sharded decimations made, by shape, and how many of its
+windows each dense run decoded (a Fano success on some attempt).
 """
 
 from __future__ import annotations
@@ -44,13 +50,21 @@ from .distributed import (
     rank_slice,
     shutdown,
 )
+from ..ops.fano_hybrid import DEVICE_MAXCYCLES
 from . import streaming
-from .multichannel import decode_channels
+from .multichannel import ChannelDecode, decode_channels
+from .multichannel import multichannel_decode_device
 
 MESSAGES = ("K1JT FN20 37", "K9AN EN50 33", "G4ABC IO91 30",
             "VA2GKA FN35 27")
 OPTIONS = DecoderOptions(quickmode=True, maxcycles=1000)
 FRAMES1, FRAMES2 = 128, 64  # stage-1 and stage-2 frames a rank
+# the dense step's two programs: the JAX dry run's quick one and its
+# full schedule at the default device budget
+DENSE_RUNS = (dict(quickmode=True, lagstep=16, max_attempts=16,
+                   maxcycles=64),
+              dict(quickmode=False, lagstep=8, max_attempts=32,
+                   maxcycles=DEVICE_MAXCYCLES))
 
 
 def example_batch(B: int):
@@ -91,6 +105,18 @@ def _circular(x: np.ndarray, filt, dev: torch.device):
     return np.stack([yI.cpu().numpy(), yQ.cpu().numpy()])
 
 
+def _dense_steps(wi, wq, dev: torch.device) -> list[list[np.ndarray]]:
+    """The dense step of each DENSE_RUNS program on these windows, every
+    ChannelDecode field as a numpy array."""
+    si = torch.from_numpy(wi).to(dev)
+    sq = torch.from_numpy(wq).to(dev)
+    md = torch.full((wi.shape[0],), OPTIONS.maxdrift, dtype=torch.int32,
+                    device=dev)
+    return [[x.cpu().numpy()
+             for x in multichannel_decode_device(si, sq, md, **kw)]
+            for kw in DENSE_RUNS]
+
+
 def launch_counts() -> dict:
     """This process's kernel launches so far, by kernel."""
     from ..ops.fano import batched_fano
@@ -125,6 +151,7 @@ def _rank_work(rank: int, n: int, dev: torch.device) -> dict:
     sl = rank_slice(B)
     spots = decode_local_shard(wi[sl], wq[sl], OPTIONS, device_batch=2,
                                device=dev)
+    dense = _dense_steps(wi[sl], wq[sl], dev)
     x1, x2 = _streams(n)
     ys = []
     with _noted_shard_calls() as calls:
@@ -135,10 +162,13 @@ def _rank_work(rank: int, n: int, dev: torch.device) -> dict:
             yI, yQ = fn(torch.from_numpy(part[0]).to(dev),
                         torch.from_numpy(part[1]).to(dev))
             ys.append(np.stack([yI.cpu().numpy(), yQ.cpu().numpy()]))
-    mine = dict(launches=launch_counts(), calls=calls)
+    ok = ChannelDecode._fields.index("success")
+    mine = dict(launches=launch_counts(), calls=calls,
+                dense_windows_decoded=[int(r[ok].any(axis=1).sum())
+                                       for r in dense])
     got = [None] * n if rank == 0 else None
-    tdist.gather_object((sl.start, sl.stop, _spot_fields(spots), ys), got,
-                        dst=0)
+    tdist.gather_object((sl.start, sl.stop, _spot_fields(spots), ys, dense),
+                        got, dst=0)
     if rank != 0:
         return mine
     starts = [g[0] for g in got] + [got[-1][1]]
@@ -151,6 +181,13 @@ def _rank_work(rank: int, n: int, dev: torch.device) -> dict:
                                          device=dev))
     if sharded != whole:
         raise RuntimeError(f"sharded decode {sharded} != unsharded {whole}")
+    for k, whole_run in enumerate(_dense_steps(wi, wq, dev)):
+        for f, name in enumerate(ChannelDecode._fields):
+            part = np.concatenate([g[4][k][f] for g in got])
+            if not np.array_equal(part, whole_run[f]):
+                raise RuntimeError(f"sharded dense step {DENSE_RUNS[k]}: "
+                                   f"field {name} differs from the "
+                                   "unsharded step")
     want_msgs = [[MESSAGES[b % len(MESSAGES)]] for b in range(B)]
     if [[s[0] for s in ch] for ch in sharded] != want_msgs:
         raise RuntimeError(f"decoded {sharded}, want {want_msgs}")
@@ -183,8 +220,9 @@ def dryrun_multichip(n_procs: int = 2, device=None) -> list[dict]:
     """Run ``n_procs`` ranks on ``device`` (None: the CUDA card) as the
     module docstring says. Returns, in rank order, each rank's
     ``{"launches": {kernel: n}, "calls": {(stage, dtype, rows, samples,
-    frames): n}}`` once every rank has finished and rank 0's checks
-    passed; raises otherwise (the other ranks are stopped)."""
+    frames): n}, "dense_windows_decoded": [quick, full]}`` once every
+    rank has finished and rank 0's checks passed; raises otherwise (the
+    other ranks are stopped)."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())

@@ -1,8 +1,10 @@
-"""Batched multi-channel WSPR decoding: the staged single-device path.
+"""Batched multi-channel WSPR decoding: the staged and the dense path.
 
 The reference decodes one channel at a time (wsprd/wsprd.c:416-855).
-Here B channels' 120 s windows decode together, as in the JAX package's
-``decode_channels`` without a sharding:
+Here B channels' 120 s windows decode together, through one of the JAX
+package's two device strategies.
+
+**Staged path** (``decode_channels`` without a sharding, the default):
 
 * **stage A** (``_stage_a_packed``): per window, the STFT power grid,
   the candidate pick and the coarse (freq, lag, drift) grid, packed as
@@ -25,12 +27,33 @@ Window planes stay on the device across passes (``_DeviceWindows``).
 Lane buckets are software-pipelined: bucket k+1's stage B is launched
 (and its host copies started) before bucket k's host FEC runs.
 
+**Dense path** (``decode_channels(sharding=channel_sharding(mesh))``):
+``multichannel_decode_device``, one device step per pass over every
+candidate slot of every window. Stage A, then fine sync and the soft
+symbols of all B x 200 slots as lanes, the FEC gates, a candidate-major
+compaction of each window's first ``max_attempts`` gate-passing
+attempts in the reference's order (a stable sort of the key
+c*J + j, which is what the JAX package's ``lax.top_k`` gives, padding
+slots included), and one Fano kernel launch over all B x max_attempts
+attempts at the calibrated device budget. The host finishes the
+stragglers on the native decoder, collects the spots and subtracts in
+rounds on host copies of the windows (``subtract_signal2_many``), then
+uploads them again. A window passing more gates than ``max_attempts``
+is redecoded through the uncapped staged path at float32 transfer, so
+the cap changes only which path decodes it. The step runs in chunks of
+DENSE_WINDOWS windows (the last padded with zero windows): one chunk's
+soft-symbol planes are ~0.4 GB a window, and shapes that never depend
+on B give every window the same arithmetic however the batch is
+sharded. Each shard of the mesh runs on its device from its own host
+thread.
+
 Host ranges are labelled for ``torch.profiler`` (``record_function``):
 ``stage_a`` (launch and fetch), ``stage_b_launch``, ``stage_b_wait``
 (waiting for a bucket's results), ``fec_host`` (host mode's FEC),
 ``fec_device`` (one device Fano call of hybrid mode, its upload and
 fetch included), ``fec_host_finish`` (hybrid mode's stragglers),
-``spots`` and ``subtract``.
+``spots`` and ``subtract``; the dense path adds ``dense_step`` (one
+pass's device step over all shards, fetch included).
 
 ``fec="auto"`` resolves through ops/calibrate.py: a measurement of the
 device Fano against the native decoder on the card, ``host`` without a
@@ -50,11 +73,13 @@ host round ``_fano_rounds_host``: host mode takes the prefetch route.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace as _dc_replace
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -70,11 +95,12 @@ from ..ops.coarse import coarse_search
 from ..ops.fano import METTAB, batched_fano, device_mettab
 from ..ops.fano_hybrid import host_finish, pending_mask
 from ..ops.stft import power_spectrogram
-from ..ops.subtract import subtract_rows
+from ..ops.subtract import subtract_rows, subtract_signal2_many
 from ..ops.sync import fine_sync_lanes, jitter_offsets, soft_symbols_lanes
 from ..utils.channel import INTERLEAVE_PERM, get_wspr_channel_symbols
 from ..utils.codec import unpack_message
 from ..utils.hashtable import WsprHashTable
+from .mesh import ChannelSharding, _shard_bounds, channel_sharding
 
 _PERM = np.asarray(INTERLEAVE_PERM, np.int64)
 _LOG = logging.getLogger("rtlsdr_wsprd_tpu_torch.multichannel")
@@ -84,7 +110,44 @@ FANO_BATCH = 512  # attempts per device Fano call (hybrid FEC)
 SUBTRACT_LANES = 256  # cross-channel subtraction lanes per device call
 PREFETCH_ATTEMPTS = 4  # per-lane FEC attempts fetched with stage B
 
-_I8_SCALE = np.float32(254.0)  # windows are -3 dB normalized (+-0.5)
+# windows are -3 dB normalized (+-0.5); the transfer formats' scales
+_SCALES = {"int8": (np.int8, np.float32(254.0)),
+           "int16": (np.int16, np.float32(65534.0))}
+TRANSFER_DTYPES = ("int8", "int16", "float32")
+
+# attempts decoded per channel per pass on the dense path (candidate-
+# major, jitter order); a window whose pre-cap gate count exceeds it is
+# redecoded through the uncapped staged path, so the cap never changes
+# what decodes
+DEFAULT_MAX_ATTEMPTS = 128
+DENSE_WINDOWS = 4  # windows a dense-step chunk (the last one padded)
+_BIG = 2 ** 30     # compaction key of a slot that failed its gates
+
+
+class ChannelDecode(NamedTuple):
+    """Fixed-shape per-channel products of the dense step (leading axis
+    = channel); tensors on the step's device, numpy after ``_unpack``."""
+
+    snr: torch.Tensor         # float32[B, C] candidate SNR, dB
+    valid: torch.Tensor       # bool[B, C] candidate validity
+    freq: torch.Tensor        # float32[B, C] fine freq, Hz (baseband)
+    shift: torch.Tensor       # int32[B, C] fine time shift, samples
+    sync: torch.Tensor        # float32[B, C] fine sync metric
+    drift: torch.Tensor       # float32[B, C] coarse drift, Hz/2min
+    sel_cand: torch.Tensor    # int32[B, K] candidate index per attempt
+    sel_jit: torch.Tensor     # int32[B, K] jitter index per attempt
+    sel_valid: torch.Tensor   # bool[B, K] attempt is live
+    success: torch.Tensor     # bool[B, K] Fano success
+    data: torch.Tensor        # uint8[B, K, 11] decoded bytes (zeros where
+    #                           success is False, as ops/fano.py says)
+    cycles: torch.Tensor      # int32[B, K] Fano cycle counts (uint32
+    #                           after _unpack, as the JAX package's)
+    deint: torch.Tensor       # uint8[B, K, 162] deinterleaved symbols
+    #                           (kept for the host straggler decoder)
+    n_gate: torch.Tensor      # int32[B] gate-passing attempts BEFORE the
+    #                           cap; > max_attempts means the compaction
+    #                           truncated (the host then redecodes that
+    #                           channel through the uncapped staged path)
 
 
 class _HostCopy:
@@ -334,6 +397,227 @@ def _lane_bucket(n: int) -> int:
     return LANE_BUCKETS[-1]
 
 
+# ---- the dense path: every candidate slot of every window, one Fano call
+
+
+def _dense_chunk(sig_i, sig_q, maxdrift, *, fmin, fmax, lagstep, iifac,
+                 quickmode, symfac, minsync1, minsync2, minrms,
+                 max_attempts):
+    """The dense step up to the Fano search over W windows (W, N):
+    stage A, fine sync and soft symbols of all W x C slots as lanes, the
+    gates (wsprd/wsprd.c:733 and :758) and each window's compaction of
+    its first ``max_attempts`` gate-passing (candidate, jitter)
+    attempts, candidate-major in the jitter schedule's order. Returns
+    (snr, valid, freq, shift, sync, drift) (W, C), (sel_cand, sel_jit,
+    sel_valid) (W, K), deint (W, K, 162) and n_gate (W,)."""
+    W = sig_i.shape[0]
+    C = MAX_CANDIDATES
+    dev = sig_i.device
+    sA = _stage_a_packed(sig_i, sig_q, maxdrift, fmin=fmin, fmax=fmax)
+    valid = sA[:, 1] != 0.0
+    drift = sA[:, 4]
+    lane_w = torch.arange(W, device=dev).repeat_interleave(C)
+    fine = fine_sync_lanes(sig_i, sig_q, lane_w, sA[:, 2].reshape(-1),
+                           sA[:, 3].to(torch.int32).reshape(-1),
+                           drift.reshape(-1), lagstep=lagstep)
+    jit = soft_symbols_lanes(sig_i, sig_q, lane_w, fine.freq, fine.shift,
+                             drift.reshape(-1), iifac=iifac,
+                             quickmode=quickmode, symfac=symfac)
+    J = jit.sync.shape[0]
+    if max_attempts > C * J:
+        raise ValueError(f"max_attempts={max_attempts} exceeds the "
+                         f"{C * J} (candidate, jitter) slots of a window")
+    worth = valid & (fine.sync.reshape(W, C) > minsync1)
+    gate = ((jit.sync > minsync2) & (jit.rms > minrms)).reshape(J, W, C)
+    gate = gate.permute(1, 2, 0) & worth[:, :, None]          # (W, C, J)
+    # the key c*J + j of a gate-passing slot, _BIG elsewhere; a stable
+    # ascending sort keeps equal keys in index order, as lax.top_k does,
+    # so the padding slots (every _BIG) come out as the JAX package's
+    prio = torch.arange(C * J, dtype=torch.int32, device=dev).reshape(C, J)
+    key = torch.where(gate, prio, torch.full_like(prio, _BIG))
+    vals, idx = torch.sort(key.reshape(W, C * J), dim=1, stable=True)
+    vals, idx = vals[:, :max_attempts], idx[:, :max_attempts]
+    sel_c = torch.div(idx, J, rounding_mode="floor")
+    sel_j = idx - sel_c * J
+    rows = torch.arange(W, device=dev)[:, None] * C + sel_c
+    deint = jit.symbols[sel_j, rows][..., const(_PERM, dev)]  # (W, K, 162)
+    return (sA[:, 0], valid, fine.freq.reshape(W, C),
+            fine.shift.reshape(W, C), fine.sync.reshape(W, C), drift,
+            sel_c.to(torch.int32), sel_j.to(torch.int32), vals < _BIG,
+            deint, gate.sum(dim=(1, 2), dtype=torch.int32))
+
+
+def multichannel_decode_device(
+    sig_i: torch.Tensor,
+    sig_q: torch.Tensor,
+    maxdrift: torch.Tensor,
+    *,
+    fmin: float = -110.0,
+    fmax: float = 110.0,
+    lagstep: int = 8,
+    iifac: int = 3,
+    quickmode: bool = False,
+    symfac: int = 50,
+    minsync1: float = 0.10,
+    minsync2: float = 0.12,
+    minrms: float = 52.0 * (50 / 64.0),
+    max_attempts: int = DEFAULT_MAX_ATTEMPTS,
+    delta: int = 60,
+    maxcycles: int = 10000,
+    device=None,
+) -> ChannelDecode:
+    """The dense decode step of one pass: sig_i/sig_q float32 (B,
+    SIGNAL_SAMPLES) planar windows and maxdrift int (B,) -> ChannelDecode
+    on the step's device. Tensors stay on their device (all on one);
+    numpy arrays are uploaded to ``device`` (None: the CUDA card).
+
+    The windows go through ``_dense_chunk`` in chunks of DENSE_WINDOWS
+    (the last padded with zero windows, whose results are dropped), and
+    every chunk's attempts through ONE ``batched_fano`` call of B x
+    max_attempts lanes at budget ``maxcycles`` (the Fano kernel on a
+    card, its plain version on the CPU)."""
+    if isinstance(sig_i, torch.Tensor):
+        dev = sig_i.device
+        if device is not None:
+            raise ValueError("device= places numpy windows; tensors stay "
+                             "on their own device")
+    else:
+        dev = resolve_device(device)
+    sig_i, sig_q = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+                    for x in (sig_i, sig_q))
+    maxdrift = torch.as_tensor(maxdrift, dtype=torch.int32, device=dev)
+    if sig_i.dim() != 2 or sig_i.shape[1] != SIGNAL_SAMPLES or \
+            sig_i.shape != sig_q.shape or maxdrift.shape != sig_i.shape[:1]:
+        raise ValueError(f"windows must be two (B, {SIGNAL_SAMPLES}) "
+                         f"planes and maxdrift (B,), got "
+                         f"{tuple(sig_i.shape)}, {tuple(sig_q.shape)}, "
+                         f"{tuple(maxdrift.shape)}")
+    B = sig_i.shape[0]
+    kw = dict(fmin=fmin, fmax=fmax, lagstep=lagstep, iifac=iifac,
+              quickmode=quickmode, symfac=symfac, minsync1=minsync1,
+              minsync2=minsync2, minrms=minrms, max_attempts=max_attempts)
+    parts = []
+    for w0 in range(0, B, DENSE_WINDOWS):
+        si, sq = sig_i[w0:w0 + DENSE_WINDOWS], sig_q[w0:w0 + DENSE_WINDOWS]
+        md = maxdrift[w0:w0 + DENSE_WINDOWS]
+        n = si.shape[0]
+        if n < DENSE_WINDOWS:
+            pad = DENSE_WINDOWS - n
+            si = torch.cat([si, si.new_zeros((pad, si.shape[1]))])
+            sq = torch.cat([sq, sq.new_zeros((pad, sq.shape[1]))])
+            md = torch.cat([md, md.new_zeros(pad)])
+        parts.append([x[:n] for x in _dense_chunk(si, sq, md, **kw)])
+    (snr, valid, freq, shift, sync, drift, sel_c, sel_j, sel_valid, deint,
+     n_gate) = (torch.cat(f) for f in zip(*parts))
+    K = max_attempts
+    res = batched_fano(deint.reshape(B * K, 162), device_mettab(dev),
+                       delta=delta, maxcycles=maxcycles,
+                       valid=sel_valid.reshape(-1))
+    return ChannelDecode(
+        snr=snr, valid=valid, freq=freq, shift=shift, sync=sync,
+        drift=drift, sel_cand=sel_c, sel_jit=sel_j, sel_valid=sel_valid,
+        success=res.success.reshape(B, K) & sel_valid,
+        data=res.data.reshape(B, K, 11), cycles=res.cycles.reshape(B, K),
+        deint=deint, n_gate=n_gate)
+
+
+def _decode_device_packed(sig_i, sig_q, maxdrift, **kw):
+    """The dense step packed into 4 tensors for the host fetch: float32
+    (B, 6, C), int32 (B, 6, K), data (B, K, 11), deint (B, K, 162)."""
+    o = multichannel_decode_device(sig_i, sig_q, maxdrift, **kw)
+    f32 = torch.stack([o.snr, o.freq, o.sync, o.drift,
+                       o.valid.to(torch.float32),
+                       o.shift.to(torch.float32)], dim=1)
+    K = o.sel_cand.shape[1]
+    i32 = torch.stack([
+        o.sel_cand, o.sel_jit, o.sel_valid.to(torch.int32),
+        o.success.to(torch.int32), o.cycles,
+        o.n_gate[:, None].expand(-1, K)], dim=1)
+    return f32, i32, o.data, o.deint
+
+
+def _unpack(f32: np.ndarray, i32: np.ndarray, data: np.ndarray,
+            deint: np.ndarray) -> ChannelDecode:
+    return ChannelDecode(
+        snr=f32[:, 0], freq=f32[:, 1], sync=f32[:, 2], drift=f32[:, 3],
+        valid=f32[:, 4] != 0.0, shift=f32[:, 5].astype(np.int32),
+        sel_cand=i32[:, 0], sel_jit=i32[:, 1],
+        sel_valid=i32[:, 2] != 0, success=i32[:, 3] != 0,
+        cycles=i32[:, 4].astype(np.uint32), data=data, deint=deint,
+        n_gate=i32[:, 5, 0],
+    )
+
+
+def _on_device(dev: torch.device):
+    """Make ``dev`` the calling thread's current card (no-op on the CPU)."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def _mesh_step(shards_i, shards_q, sharding: ChannelSharding,
+               maxdrift_val: int, kw: dict) -> ChannelDecode:
+    """One pass's dense step over the shards of a batch, each on its
+    device from its own host thread; the numpy ChannelDecodes merged in
+    row order."""
+    devs = sharding.mesh.devices
+
+    def run(k):
+        si = shards_i[k]
+        with _on_device(devs[k]):
+            md = torch.full((si.shape[0],), maxdrift_val, dtype=torch.int32,
+                            device=si.device)
+            pk = _decode_device_packed(si, shards_q[k], md, **kw)
+            return _unpack(*_HostCopy(pk).get())
+
+    with ThreadPoolExecutor(max_workers=len(shards_i)) as ex:
+        parts = list(ex.map(run, range(len(shards_i))))
+    return ChannelDecode(*(np.concatenate(f) for f in zip(*parts)))
+
+
+def _finish_stragglers(out: ChannelDecode, options: DecoderOptions,
+                       device) -> ChannelDecode:
+    """Host side of the dense step's hybrid FEC: attempts that ran out of
+    the device budget re-run on the native decoder with the full budget
+    (ops/fano_hybrid.py)."""
+    dev_mc = _device_fano_budget(options.maxcycles, device)
+    B, K = out.success.shape
+    succ = out.success.reshape(-1)
+    cyc = out.cycles.reshape(-1)
+    pend = pending_mask(succ, cyc, dev_mc, options.maxcycles)
+    pend &= out.sel_valid.reshape(-1)
+    if not pend.any():
+        return out
+    with record_function("fec_host_finish"):
+        succ, data, cyc = host_finish(
+            out.deint.reshape(-1, 162), succ, out.data.reshape(-1, 11), cyc,
+            pend, options.delta, options.maxcycles)
+    return out._replace(success=succ.reshape(B, K),
+                        data=data.reshape(B, K, 11),
+                        cycles=cyc.reshape(B, K))
+
+
+def _collect_channel_spots(b: int, out: ChannelDecode, jit_offs: np.ndarray,
+                           options: DecoderOptions, ht: WsprHashTable,
+                           seen: list[tuple[str, float]],
+                           uniques: list[Spot],
+                           ipass: int) -> list[tuple[int, str]]:
+    """One channel's pass on the dense path: its first success per
+    candidate (attempts are candidate-major in jitter order), then the
+    shared unpack and dedupe (``_emit_channel_spots``)."""
+    decoded: dict[int, tuple[int, bytes, int]] = {}
+    for a in range(out.sel_valid.shape[1]):
+        if not out.sel_valid[b, a] or not out.success[b, a]:
+            continue
+        c = int(out.sel_cand[b, a])
+        if c not in decoded:
+            decoded[c] = (int(out.sel_jit[b, a]), bytes(out.data[b, a]),
+                          int(out.cycles[b, a]))
+    tbl = dict(freq=out.freq, sync=out.sync, snr=out.snr,
+               shift=out.shift, drift=out.drift)
+    return _emit_channel_spots(b, decoded, tbl, jit_offs, options, ht,
+                               seen, uniques, ipass)
+
+
 def _emit_channel_spots(
     b: int,
     decoded: dict[int, tuple[int, bytes, int]],
@@ -387,28 +671,43 @@ class _DeviceWindows:
     planar float32, updated in place of the old ones by each round of
     subtraction.
 
-    Transfer format: the windows are -3 dB peak-normalized (+-0.5,
-    rtlsdr_wsprd.c:291-305), so they cross the host->device link as int8
-    (``native.quantize_into``: NaN -> 0, round to nearest even, clamp
-    +-127, scale 254) and dequantize on the device, as the JAX package
-    does."""
+    Transfer format (``transfer_dtype``): the windows are -3 dB
+    peak-normalized (+-0.5, rtlsdr_wsprd.c:291-305), so by default they
+    cross the host->device link as int8 (``native.quantize_into``: NaN
+    -> 0, round to nearest even, clamp to the symmetric range, scale
+    254) and dequantize on the device, as the JAX package does;
+    ``"int16"`` (scale 65534) and ``"float32"`` (exact) are the JAX
+    package's other two formats."""
 
     def __init__(self, cur_i: np.ndarray, cur_q: np.ndarray,
-                 device_batch: int, device=None):
+                 device_batch: int, transfer_dtype: str = "int8",
+                 device=None):
+        if transfer_dtype not in TRANSFER_DTYPES:
+            raise ValueError(f"transfer_dtype={transfer_dtype!r}: want one "
+                             f"of {TRANSFER_DTYPES}")
         self.device = resolve_device(device)
         self.device_batch = device_batch
         B = cur_i.shape[0]
         self.B = B
         self.n_pad = -(-B // device_batch) * device_batch
-        host_i = np.zeros((self.n_pad, cur_i.shape[1]), np.int8)
-        host_q = np.zeros((self.n_pad, cur_q.shape[1]), np.int8)
-        native.quantize_into(np.ascontiguousarray(cur_i, np.float32),
-                             host_i[:B], _I8_SCALE)
-        native.quantize_into(np.ascontiguousarray(cur_q, np.float32),
-                             host_q[:B], _I8_SCALE)
-        inv = float(np.float32(1.0) / _I8_SCALE)  # the float32 value exactly
-        self._di = _to_device(host_i, self.device).to(torch.float32) * inv
-        self._dq = _to_device(host_q, self.device).to(torch.float32) * inv
+        if transfer_dtype == "float32":
+            planes = []
+            for cur in (cur_i, cur_q):
+                host = np.zeros((self.n_pad, cur.shape[1]), np.float32)
+                host[:B] = cur
+                planes.append(_to_device(host, self.device))
+            self._di, self._dq = planes
+            return
+        dt, scale = _SCALES[transfer_dtype]
+        inv = float(np.float32(1.0) / scale)  # the float32 value exactly
+        planes = []
+        for cur in (cur_i, cur_q):
+            host = np.zeros((self.n_pad, cur.shape[1]), dt)
+            native.quantize_into(np.ascontiguousarray(cur, np.float32),
+                                 host[:B], scale)
+            planes.append(_to_device(host, self.device).to(torch.float32)
+                          * inv)
+        self._di, self._dq = planes
 
     @classmethod
     def from_device(cls, di: torch.Tensor, dq: torch.Tensor,
@@ -579,10 +878,12 @@ def prepare_windows(
     i_windows: np.ndarray,
     q_windows: np.ndarray,
     device_batch: int = 8,
+    transfer_dtype: str = "int8",
     device=None,
 ) -> _DeviceWindows:
-    """Quantize a window batch and upload it (``device=None``: the CUDA
-    card). Pass the handle to ``decode_channels(windows=...)``."""
+    """Quantize a window batch to ``transfer_dtype`` (see
+    ``_DeviceWindows``) and upload it (``device=None``: the CUDA card).
+    Pass the handle to ``decode_channels(windows=...)``."""
     cur_i = np.asarray(i_windows, np.float32)
     cur_q = np.asarray(q_windows, np.float32)
     if cur_i.ndim != 2 or cur_i.shape[1] != SIGNAL_SAMPLES:
@@ -590,7 +891,8 @@ def prepare_windows(
                          f"got {cur_i.shape}")
     if cur_i.shape != cur_q.shape:
         raise ValueError(f"I/Q shapes differ: {cur_i.shape}, {cur_q.shape}")
-    return _DeviceWindows(cur_i, cur_q, device_batch, device=device)
+    return _DeviceWindows(cur_i, cur_q, device_batch,
+                          transfer_dtype=transfer_dtype, device=device)
 
 
 def prepare_windows_device(di: torch.Tensor, dq: torch.Tensor,
@@ -612,36 +914,104 @@ def decode_channels(
     q_windows: np.ndarray | None,
     options: DecoderOptions = DecoderOptions(),
     hashtable: WsprHashTable | None = None,
+    sharding: ChannelSharding | None = None,
+    max_attempts: int = DEFAULT_MAX_ATTEMPTS,
     device_batch: int = 8,
+    transfer_dtype: str = "int8",
     device=None,
     windows: _DeviceWindows | None = None,
     fec: str = "auto",
 ) -> list[list[Spot]]:
-    """Decode B channels' 120 s windows on one device.
+    """Decode B channels' 120 s windows.
 
     i_windows/q_windows: float32[B, SIGNAL_SAMPLES] planar I/Q, already
     -3 dB normalized; or ``windows``, a prepare_windows() /
     prepare_windows_device() handle (then both may be None).
-    ``device=None`` means the CUDA card. ``fec``: 'host' (the native
+
+    Without ``sharding``: the staged path on ``device`` (None: the CUDA
+    card), the windows uploaded as ``transfer_dtype`` ('int8', 'int16'
+    or 'float32', see ``_DeviceWindows``). ``fec``: 'host' (the native
     sequential Fano), 'hybrid' (the device Fano kernel at the calibrated
     budget, stragglers on the native decoder; identical results) or
-    'auto' (calibrated per device, ops/calibrate.py). Returns per-channel
-    Spot lists, each sorted by SNR descending."""
+    'auto' (calibrated per device, ops/calibrate.py).
+
+    With ``sharding`` (``channel_sharding(mesh)``, parallel/mesh.py):
+    the dense path, each row shard on its mesh device, at most
+    ``max_attempts`` attempts a channel a pass on the device (see the
+    module docstring; ``fec`` then applies to the staged redecode of a
+    channel past that cap). ``windows``, ``device``, ``device_batch``
+    and ``transfer_dtype`` are the staged path's.
+
+    Returns per-channel Spot lists, each sorted by SNR descending. The
+    caller's arrays are never modified."""
     if fec not in ("auto", "host", "hybrid"):
         raise ValueError(f"fec={fec!r}: want 'auto', 'host' or 'hybrid'")
     ht = hashtable if hashtable is not None else WsprHashTable()
+    if sharding is not None:
+        if windows is not None:
+            raise ValueError("windows= is the staged path; no sharding")
+        dev0 = sharding.mesh.devices[0]
+        with _on_device(dev0):
+            return _decode_mesh(i_windows, q_windows, options, ht, sharding,
+                                max_attempts, fec)
     if windows is not None:
         dw = windows
     else:
         dw = prepare_windows(i_windows, q_windows, device_batch,
-                             device=device)
-    if dw.device.type != "cuda":
-        return _decode_handle(dw, options, ht, fec)
+                             transfer_dtype=transfer_dtype, device=device)
     # the calling thread's current card is the windows' one, so every
     # event, stream and table of the decode is that card's (a shard on
     # cuda:k of the multi-device decode never touches cuda:0)
-    with torch.cuda.device(dw.device):
+    with _on_device(dw.device):
         return _decode_handle(dw, options, ht, fec)
+
+
+def _decode_kw(options: DecoderOptions) -> dict:
+    """The device steps' keyword arguments that ``options`` sets."""
+    return dict(
+        fmin=options.fmin, fmax=options.fmax,
+        lagstep=16 if options.quickmode else 8,
+        iifac=options.iifac, quickmode=options.quickmode,
+        symfac=options.symfac, minsync1=options.minsync1,
+        minsync2=options.minsync2, minrms=options.minrms,
+    )
+
+
+def _queue_subtractions(subs: dict, b: int, new_decodes, tbl: dict,
+                        row: int, ht: WsprHashTable,
+                        sym_cache: dict) -> None:
+    """Append channel ``b``'s new decodes to ``subs[b]`` as (f0, shift,
+    drift, channel symbols), their fields read from row ``row`` of
+    ``tbl``. Subtraction re-encodes each decoded message; ``sym_cache``
+    memoizes that a call (a message is re-encoded identically)."""
+    for c, call_loc_pow in new_decodes:
+        if call_loc_pow not in sym_cache:
+            cs = get_wspr_channel_symbols(call_loc_pow, ht)
+            sym_cache[call_loc_pow] = (None if cs is None
+                                       else np.asarray(cs, np.uint8))
+        chan_syms = sym_cache[call_loc_pow]
+        if chan_syms is None:
+            continue
+        subs.setdefault(b, []).append((
+            float(tbl["freq"][row, c]), int(tbl["shift"][row, c]),
+            float(tbl["drift"][row, c]), chan_syms))
+
+
+def _subtraction_groups(subs: dict, lane_n: int):
+    """``subs`` in ROUNDS, round r holding each channel's r-th decode
+    (same-channel decodes stay sequential, wsprd/wsprd.c:781-789), each
+    round in groups of at most ``lane_n`` lanes: yields (bidx int64,
+    f0 float32, shift int32, drift float32, symbols uint8 (n, 162))."""
+    n_rounds = max(len(v) for v in subs.values())
+    for r in range(n_rounds):
+        lanes = [(b, *subs[b][r]) for b in sorted(subs) if len(subs[b]) > r]
+        for l0 in range(0, len(lanes), lane_n):
+            grp = lanes[l0:l0 + lane_n]
+            yield (np.array([g[0] for g in grp], np.int64),
+                   np.array([g[1] for g in grp], np.float32),
+                   np.array([g[2] for g in grp], np.int32),
+                   np.array([g[3] for g in grp], np.float32),
+                   np.stack([g[4] for g in grp]))
 
 
 def _decode_handle(dw: _DeviceWindows, options: DecoderOptions,
@@ -652,14 +1022,8 @@ def _decode_handle(dw: _DeviceWindows, options: DecoderOptions,
     if fec == "auto":
         fec = _default_fec_mode(dw.device)
 
-    lagstep = 16 if options.quickmode else 8
     jit_offs = jitter_offsets(options.iifac, options.quickmode)
-    kw = dict(
-        fmin=options.fmin, fmax=options.fmax, lagstep=lagstep,
-        iifac=options.iifac, quickmode=options.quickmode,
-        symfac=options.symfac, minsync1=options.minsync1,
-        minsync2=options.minsync2, minrms=options.minrms,
-    )
+    kw = _decode_kw(options)
     if fec == "hybrid":
         # the device runs a small calibrated budget; stragglers are
         # finished on the host at the full one
@@ -667,7 +1031,6 @@ def _decode_handle(dw: _DeviceWindows, options: DecoderOptions,
 
     uniques: list[list[Spot]] = [[] for _ in range(B)]
     seen: list[list[tuple[str, float]]] = [[] for _ in range(B)]
-    # subtraction re-encodes each decoded message; memoize per call
     sym_cache: dict[str, np.ndarray | None] = {}
 
     for ipass in range(options.npasses):
@@ -683,9 +1046,6 @@ def _decode_handle(dw: _DeviceWindows, options: DecoderOptions,
         decoded_by_b, tbl = _staged_pass(dw, active, maxdrift_val, kw,
                                          device_batch, options, fec)
 
-        # this pass's new decodes per channel, subtracted in ROUNDS:
-        # round r applies each channel's r-th decode (same-channel
-        # decodes stay sequential, wsprd/wsprd.c:781-789)
         subs: dict[int, list[tuple]] = {}
         with record_function("spots"):
             for b in range(B):
@@ -694,33 +1054,108 @@ def _decode_handle(dw: _DeviceWindows, options: DecoderOptions,
                 new_decodes = _emit_channel_spots(
                     b, decoded_by_b[b], tbl, jit_offs, options, ht, seen[b],
                     uniques[b], ipass)
-                for c, call_loc_pow in new_decodes:
-                    if call_loc_pow not in sym_cache:
-                        cs = get_wspr_channel_symbols(call_loc_pow, ht)
-                        sym_cache[call_loc_pow] = (
-                            None if cs is None else np.asarray(cs, np.uint8))
-                    chan_syms = sym_cache[call_loc_pow]
-                    if chan_syms is None:
-                        continue
-                    subs.setdefault(b, []).append((
-                        float(tbl["freq"][b, c]), int(tbl["shift"][b, c]),
-                        float(tbl["drift"][b, c]), chan_syms))
+                _queue_subtractions(subs, b, new_decodes, tbl, b, ht,
+                                    sym_cache)
         if subs:
-            lane_n = max(device_batch, SUBTRACT_LANES)
-            n_rounds = max(len(v) for v in subs.values())
-            for r in range(n_rounds):
-                lanes = [(b, *subs[b][r]) for b in sorted(subs)
-                         if len(subs[b]) > r]
-                for l0 in range(0, len(lanes), lane_n):
-                    grp = lanes[l0:l0 + lane_n]
-                    with record_function("subtract"):
-                        dw.subtract(
-                            np.array([g[0] for g in grp], np.int64),
-                            np.array([g[1] for g in grp], np.float32),
-                            np.array([g[2] for g in grp], np.int32),
-                            np.array([g[3] for g in grp], np.float32),
-                            np.stack([g[4] for g in grp]),
-                            np.ones(len(grp), bool))
+            for bidx, f0, sh, dr, syms in _subtraction_groups(
+                    subs, max(device_batch, SUBTRACT_LANES)):
+                with record_function("subtract"):
+                    dw.subtract(bidx, f0, sh, dr, syms,
+                                np.ones(len(bidx), bool))
+
+    for b in range(B):
+        uniques[b].sort(key=lambda s: -s.snr)
+    return uniques
+
+
+def _decode_mesh(i_windows, q_windows, options: DecoderOptions,
+                 ht: WsprHashTable, sharding: ChannelSharding,
+                 max_attempts: int, fec: str) -> list[list[Spot]]:
+    """decode_channels' dense path (the JAX package's mesh host loop):
+    per pass, the dense step on every shard, the stragglers finished on
+    the host, the spots collected, a channel past the attempt cap
+    redecoded through the staged path, and the subtraction in rounds on
+    host copies, uploaded again for the next pass. Runs with the mesh's
+    first device current; the redecode and the subtraction run there."""
+    # mutable COPIES: the subtraction writes into these, never into the
+    # caller's buffers
+    cur_i = np.array(i_windows, np.float32)
+    cur_q = np.array(q_windows, np.float32)
+    if cur_i.ndim != 2 or cur_i.shape[1] != SIGNAL_SAMPLES or \
+            cur_i.shape != cur_q.shape:
+        raise ValueError(f"windows must be two (B, {SIGNAL_SAMPLES}) "
+                         f"planes, got {cur_i.shape}, {cur_q.shape}")
+    B = cur_i.shape[0]
+    dev0 = sharding.mesh.devices[0]
+    if fec == "auto":
+        fec = _default_fec_mode(dev0)
+    jit_offs = jitter_offsets(options.iifac, options.quickmode)
+    # the device Fano runs the calibrated budget; stragglers are
+    # finished on the host at the full one (_finish_stragglers)
+    kw = dict(_decode_kw(options), max_attempts=max_attempts,
+              delta=options.delta,
+              maxcycles=_device_fano_budget(options.maxcycles, dev0))
+
+    uniques: list[list[Spot]] = [[] for _ in range(B)]
+    seen: list[list[tuple[str, float]]] = [[] for _ in range(B)]
+    sym_cache: dict[str, np.ndarray | None] = {}
+    shards = sharding.place(cur_i), sharding.place(cur_q)
+
+    for ipass in range(options.npasses):
+        if ipass == 1 and not any(uniques):
+            break  # wsprd/wsprd.c:522 (per batch: nothing to subtract)
+        maxdrift_val = options.maxdrift if ipass < 2 else 0
+        kw = dict(kw, minsync2=options.minsync2 if ipass < 2 else 0.10)
+        with record_function("dense_step"):
+            out = _mesh_step(*shards, sharding, maxdrift_val, kw)
+        out = _finish_stragglers(out, options, dev0)
+        # a window passing more gates than the compaction keeps: its
+        # dropped attempts are ones the reference would still try (it
+        # has no cap, wsprd/wsprd.c:739-766), so it is redecoded through
+        # the uncapped staged path, at float32 transfer
+        ovf = [b for b in range(B) if int(out.n_gate[b]) > max_attempts
+               and (ipass == 0 or uniques[b])]
+        ovf_row = {b: k for k, b in enumerate(ovf)}
+        if ovf:
+            _LOG.info("dense attempt cap overflow on %d channel(s) (max "
+                      "n_gate=%d > %d); staged redecode", len(ovf),
+                      max(int(out.n_gate[b]) for b in ovf), max_attempts)
+            odw = _DeviceWindows(cur_i[ovf], cur_q[ovf], min(8, len(ovf)),
+                                 transfer_dtype="float32", device=dev0)
+            o_decoded, o_tbl = _staged_pass(odw, list(range(len(ovf))),
+                                            maxdrift_val, kw,
+                                            odw.device_batch, options, fec)
+
+        subs: dict[int, list[tuple]] = {}
+        with record_function("spots"):
+            for b in range(B):
+                if ipass == 1 and not uniques[b]:
+                    continue  # this channel's pass 0 was empty
+                if b in ovf_row:
+                    row, tbl = ovf_row[b], o_tbl
+                    new_decodes = _emit_channel_spots(
+                        row, o_decoded[row], tbl, jit_offs, options, ht,
+                        seen[b], uniques[b], ipass)
+                else:
+                    row, tbl = b, out._asdict()
+                    new_decodes = _collect_channel_spots(
+                        b, out, jit_offs, options, ht, seen[b], uniques[b],
+                        ipass)
+                _queue_subtractions(subs, b, new_decodes, tbl, row, ht,
+                                    sym_cache)
+        if subs:
+            for bidx, f0, sh, dr, syms in _subtraction_groups(
+                    subs, SUBTRACT_LANES):
+                with record_function("subtract"):
+                    ni, nq = subtract_signal2_many(
+                        _to_device(cur_i[bidx], dev0),
+                        _to_device(cur_q[bidx], dev0),
+                        _to_device(f0, dev0), _to_device(sh, dev0),
+                        _to_device(dr, dev0), _to_device(syms, dev0),
+                        torch.ones(len(bidx), dtype=torch.bool,
+                                   device=dev0))
+                    cur_i[bidx], cur_q[bidx] = _HostCopy((ni, nq)).get()
+            shards = sharding.place(cur_i), sharding.place(cur_q)
 
     for b in range(B):
         uniques[b].sort(key=lambda s: -s.snr)
@@ -748,13 +1183,6 @@ def resolve_type3_spots(per_channel: list[list[Spot]],
                 s, call=hc, message=f"{hc} {s.loc} {s.pwr}"[:22])
         out.append(resolved)
     return out
-
-
-def _shard_bounds(B: int, n_devices: int) -> list[tuple[int, int]]:
-    """B channel rows in one contiguous ``[s0, s1)`` shard per device
-    (fewer shards than devices when B is smaller)."""
-    d = min(n_devices, B)
-    return [(B * k // d, B * (k + 1) // d) for k in range(d)]
 
 
 def decode_channels_multidevice(
@@ -920,3 +1348,11 @@ def decode_channels_pipelined(
         batches, options, hashtable, depth=depth, device_batch=device_batch,
         fec=fec, on_error=on_error, devices=[device],
         strict_hash_order=strict_hash_order)
+
+
+def shard_windows(i_windows, q_windows, mesh):
+    """Planar (B, SIGNAL_SAMPLES) window batches as float32 row shards
+    over ``mesh`` (``channel_sharding(mesh).place``): two lists, shard k
+    on the mesh's device k."""
+    sh = channel_sharding(mesh)
+    return sh.place(i_windows), sh.place(q_windows)

@@ -67,14 +67,27 @@ def test_host_fano_bit_exact_with_jax_binding():
 
 
 @pytest.mark.parametrize("dtype,scale", [(np.int8, 254.0),
-                                         (np.int16, 65534.0)])
+                                         (np.int16, 65534.0),
+                                         (np.float32, 1.0)])
 def test_window_quantization_equals_jax(dtype, scale):
     """float32 -> int8/int16 transfer quantization: NaN -> 0, round to
     nearest even, clamp to the symmetric range; equal to the JAX
-    package's native quantizer element for element."""
+    package's native quantizer element for element, at the scale both
+    packages give the format. The float32 transfer is exact: the host
+    planes cross as they are, NaN and infinities included."""
     rng = np.random.default_rng(13)
     x = rng.normal(0, 0.3, (3, 1000)).astype(np.float32)
     x[0, :6] = [np.nan, np.inf, -np.inf, 2.0, -2.0, 0.5 / scale * 3]
+    name = np.dtype(dtype).name
+    if dtype == np.float32:
+        got = pmc._DeviceWindows(x, x, 3, transfer_dtype=name, device=CPU)
+        ref = jmc._DeviceWindows(x, x, 3, transfer_dtype=name)
+        np.testing.assert_array_equal(got.arrays[0].numpy(),
+                                      np.asarray(ref.arrays[0]))
+        np.testing.assert_array_equal(got.arrays[0].numpy(), x)
+        return
+    assert pmc._SCALES[name] == (dtype, scale)
+    assert scale == (jmc._I8_SCALE if dtype == np.int8 else jmc._I16_SCALE)
     got = np.zeros(x.shape, dtype)
     ref = np.zeros(x.shape, dtype)
     pnative.quantize_into(x, got, np.float32(scale))
@@ -83,14 +96,23 @@ def test_window_quantization_equals_jax(dtype, scale):
 
 
 def test_device_windows_dequantize_like_jax(wins):
-    """The int8 window upload dequantizes to the same float32 samples as
-    the JAX package's _DeviceWindows, padding rows included."""
+    """The window upload in each transfer format (int8, the default;
+    int16; float32) gives the same float32 samples as the JAX package's
+    _DeviceWindows, padding rows included; prepare_windows passes the
+    format on, and an unknown one raises."""
     wi, wq = wins
-    got = pmc._DeviceWindows(wi, wq, device_batch=2, device=CPU)
-    ref = jmc._DeviceWindows(wi, wq, device_batch=2)
-    assert got.n_pad == ref.n_pad == 4
-    for g, r in zip(got.arrays, ref.arrays):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    for tdt in ("int8", "int16", "float32"):
+        got = pmc.prepare_windows(wi, wq, 2, transfer_dtype=tdt, device=CPU)
+        ref = jmc._DeviceWindows(wi, wq, device_batch=2, transfer_dtype=tdt)
+        assert got.n_pad == ref.n_pad == 4
+        for g, r in zip(got.arrays, ref.arrays):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    default = pmc._DeviceWindows(wi, wq, device_batch=2, device=CPU)
+    int8 = pmc._DeviceWindows(wi, wq, 2, transfer_dtype="int8", device=CPU)
+    for d, g in zip(default.arrays, int8.arrays):
+        np.testing.assert_array_equal(d.numpy(), g.numpy())
+    with pytest.raises(ValueError, match="transfer_dtype"):
+        pmc._DeviceWindows(wi, wq, 2, transfer_dtype="bfloat16", device=CPU)
 
 
 def test_decode_channels_matches_jax(wins, jax_host_fec):
@@ -297,7 +319,11 @@ def test_entry_points_default_to_cuda():
     raises instead of running on the CPU."""
     from rtlsdr_wsprd_tpu_torch.device import resolve_device
     from rtlsdr_wsprd_tpu_torch.frontend import decimate as pdec
-    from rtlsdr_wsprd_tpu_torch.models.decoder import WsprDecoder
+    from rtlsdr_wsprd_tpu_torch.models.decoder import (
+        WsprDecoder,
+        decode_window,
+    )
+    from rtlsdr_wsprd_tpu_torch.parallel import mesh as pmesh
     from rtlsdr_wsprd_tpu_torch.runtime import multidaemon as pmd
     from rtlsdr_wsprd_tpu_torch.runtime import scheduler as psched
     from rtlsdr_wsprd_tpu_torch.runtime import sources as psrc
@@ -311,6 +337,13 @@ def test_entry_points_default_to_cuda():
         lambda: pmc.decode_channels(w, w),
         lambda: pmc.prepare_windows(w, w),
         lambda: WsprDecoder(),
+        lambda: WsprDecoder(staged=False),
+        lambda: decode_window(w[0], w[0]),
+        lambda: pmc.multichannel_decode_device(w, w, np.zeros(1, np.int32)),
+        lambda: pmesh.local_mesh(),
+        lambda: pmesh.make_mesh(),
+        lambda: pmc.decode_channels(
+            w, w, sharding=pmesh.channel_sharding(pmesh.local_mesh(1))),
         lambda: pdec.decimate_stage1(raw, raw, 5),
         lambda: pdec.decimate_stage2(w[0], w[0], 5),
         lambda: pdec.decimate_window(raw, raw),
@@ -332,8 +365,9 @@ def test_import_leaves_jax_out():
     """In a fresh interpreter, importing every module of the port (and
     chip_smoke.py) loads neither jax nor the JAX package; the walk
     reaches the FEC modules (ops.fano, ops.fano_hybrid, ops.calibrate),
-    the runtime layer, both CLIs, the channelizer and the multi-host
-    runtime (parallel.distributed, parallel.streaming, parallel.dryrun)."""
+    the runtime layer, both CLIs, the channelizer, the multi-host
+    runtime (parallel.distributed, parallel.streaming, parallel.dryrun)
+    and the dense path (parallel.mesh, models.decoder's decode_window)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import rtlsdr_wsprd_tpu_torch as p\n"
@@ -345,7 +379,7 @@ def test_import_leaves_jax_out():
         "       'runtime.sources', 'runtime.banks', 'runtime.scheduler',\n"
         "       'runtime.multidaemon', 'frontend.channelize',\n"
         "       'parallel.distributed', 'parallel.streaming',\n"
-        "       'parallel.dryrun')\n"
+        "       'parallel.dryrun', 'parallel.mesh', 'models.decoder')\n"
         "assert all(p.__name__ + '.' + m in sys.modules for m in new)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'rtlsdr_wsprd_tpu'))\n"

@@ -265,11 +265,13 @@ def test_time_sharded_decimation_one_rank_matches_jax():
 
 def test_dryrun_multichip_two_cpu_ranks():
     """dryrun_multichip(2, "cpu"): two gloo ranks each decode their slice
-    of a 4-window batch and run both sharded decimations; rank 0's
-    checks against the unsharded decode and decimations pass. On the CPU
+    of a 4-window batch (the staged decode, and the dense step in quick
+    mode and on the full schedule) and run both sharded decimations;
+    rank 0's checks against the unsharded decode, the unsharded dense
+    steps (every ChannelDecode field) and decimations pass. On the CPU
     no rank launches a kernel (the plain versions run); each rank's
     sharded decimations make one polyphase call a stage, at its shard
-    plus the halo."""
+    plus the halo; both dense runs decode both of a rank's windows."""
     from rtlsdr_wsprd_tpu_torch.parallel.dryrun import (
         FRAMES1,
         FRAMES2,
@@ -280,4 +282,5 @@ def test_dryrun_multichip_two_cpu_ranks():
         "launches": {"tc": 0, "direct": 0, "fano": 0},
         "calls": {("stage1", "float32", 1, FRAMES1 * 80 + 560, FRAMES1): 1,
                   ("stage2", "float32", 1, FRAMES2 * 80 + 2320, FRAMES2): 1},
+        "dense_windows_decoded": [2, 2],
     }] * 2
