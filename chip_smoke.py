@@ -106,7 +106,17 @@ Phases, in order; any failure exits non-zero before the last line:
             [cuda:0] and [cuda:0, cuda:0], each equal to decode_channels
             in every spot field; decode_channels_pipelined_multidevice
             over 4 batches on two shards of the card, with windows/s
-            (run right after the decode phase); and, inside the daemon
+            (run right after the decode phase); its transfer part on the
+            first 128 windows: decode_channels_pipelined over 2 batches
+            at transfer_dtype int16 and float32,
+            decode_channels_multidevice on [cuda:0, cuda:0] at int16 and
+            decode_channels_pipelined_multidevice fed 2 batches of two
+            prepare_windows_device(..., device="cuda:0") shard handles,
+            each equal in every spot field to decode_channels at the
+            same format (the whole batch, or each half), the windows that
+            differ between int8, int16 and float32 and the seconds of
+            each run, prepare_windows_device(<card planes>, device="cpu")
+            raising; and, inside the daemon
             phase, the 8-channel daemon again with devices [cuda:0,
             cuda:0], its spots equal to the default run's.
 9. channelize
@@ -146,6 +156,7 @@ non-zero without one. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -1836,8 +1847,133 @@ def phase_multidevice(dev, card, wi, wq, host_spots, DB: int = 128):
         f"{rate:.1f} decode windows/s ({card}); every batch equals "
         f"decode_channels on its shards")
     summary["pipelined_multidevice_x2"] = round(rate, 1)
+    summary["transfer"] = phase_transfer(dev, card, wi, wq, counts,
+                                         shapes_by_path, DB)
     log(json.dumps({"multidevice": summary}))
     return counts, summary
+
+
+TRANSFER_N = 128  # windows of the multidevice phase's transfer part
+# a spot as _fields gives it, for _mismatches
+_Spot = collections.namedtuple(
+    "_Spot", "message jitter cycles freq snr dt sync drift")
+
+
+def phase_transfer(dev, card, wi, wq, counts, shapes_by_path, DB,
+                   shard: str = "cuda:0"):
+    """The drivers' transfer formats on the batch's first TRANSFER_N
+    windows (fec 'auto'): decode_channels_pipelined over 2 batches at
+    int16 and at float32, decode_channels_multidevice on two shards of
+    ``shard`` at int16, and decode_channels_pipelined_multidevice fed
+    per-shard prepare_windows_device handles (float32 planes already on
+    ``shard``, the device-fed front end's layout); each equal in every spot
+    field to decode_channels at the same format on the same windows (the
+    whole batch, or each half). A handle asked for on another device
+    than its planes' must raise. Every driver run is one counted path,
+    ``transfer``. Returns the seconds of each run and the windows that
+    differ between the formats."""
+    from rtlsdr_wsprd_tpu_torch.config import DecoderOptions
+    from rtlsdr_wsprd_tpu_torch.parallel.multichannel import (
+        decode_channels,
+        decode_channels_multidevice,
+        decode_channels_pipelined,
+        decode_channels_pipelined_multidevice,
+        prepare_windows_device,
+    )
+
+    N = TRANSFER_N
+    H = N // 2
+    wi, wq = wi[:N], wq[:N]
+    opts = DecoderOptions()
+    secs: dict[str, float] = {}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[key] = time.perf_counter() - t0
+        return out
+
+    whole, halves = {}, {}
+    for td in ("int8", "int16", "float32"):
+        whole[td] = _fields(timed(f"decode_channels {td}", lambda: (
+            decode_channels(wi, wq, opts, device_batch=DB,
+                            transfer_dtype=td, device=dev))))
+    for td in ("int16", "float32"):
+        halves[td] = _fields([
+            ch for s0, s1 in ((0, H), (H, N))
+            for ch in decode_channels(wi[s0:s1], wq[s0:s1], opts,
+                                      device_batch=DB, transfer_dtype=td,
+                                      device=dev)])
+    pairs = (("int8", "int16"), ("int8", "float32"), ("int16", "float32"))
+    differ = {f"{a}/{b}": sum(x != y for x, y in zip(whole[a], whole[b]))
+              for a, b in pairs}
+    beyond = {f"{a}/{b}": len(_mismatches(*(
+        [[_Spot(*f) for f in ch] for ch in whole[t]] for t in (a, b))))
+        for a, b in pairs}
+    messages = {f"{a}/{b}": sum({x[0] for x in p} != {y[0] for y in q}
+                                for p, q in zip(whole[a], whole[b]))
+                for a, b in pairs}
+    log(f"[transfer] windows of {N} whose spots differ between transfer "
+        f"formats in any field: {differ}; beyond float rounding "
+        f"(_mismatches): {beyond}; in the set of decoded messages: "
+        f"{messages}")
+
+    def handles():
+        return [prepare_windows_device(
+            torch.from_numpy(wi[s0:s1]).to(shard),
+            torch.from_numpy(wq[s0:s1]).to(shard),
+            device_batch=s1 - s0, device=shard)
+            for s0, s1 in ((0, H), (H, N))]
+
+    def check(label, got, want):
+        bad = [b for b in range(N) if got[b:b + 1] != want[b:b + 1]]
+        if len(got) != N or bad:
+            fail(f"[transfer] {label}: spots differ from decode_channels at "
+                 f"the same format in windows {bad[:10]} (of {len(got)})")
+
+    label = "transfer"
+    with counted_path(label, counts, shapes_by_path, phase="multidevice"):
+        for td in ("int16", "float32"):
+            out = timed(f"pipelined {td}", lambda: list(
+                decode_channels_pipelined(
+                    [(wi, wq)] * 2, opts, device_batch=DB,
+                    transfer_dtype=td, device=dev)))
+            if len(out) != 2:
+                fail(f"[transfer] pipelined {td}: {len(out)} batches of 2")
+            for k, o in enumerate(out):
+                check(f"decode_channels_pipelined {td}, batch {k}",
+                      _fields(o), whole[td])
+        got = timed("multidevice x2 int16", lambda: (
+            decode_channels_multidevice(wi, wq, opts,
+                                        devices=[shard, shard],
+                                        device_batch=DB,
+                                        transfer_dtype="int16")))
+        check("decode_channels_multidevice x2 int16", _fields(got),
+              halves["int16"])
+        fed = [handles(), handles()]
+        out = timed("pipelined multidevice, shard handles", lambda: list(
+            decode_channels_pipelined_multidevice(iter(fed), opts)))
+        if len(out) != 2:
+            fail(f"[transfer] shard handles: {len(out)} batches of 2")
+        for k, o in enumerate(out):
+            check(f"pipelined multidevice, shard handles, batch {k}",
+                  _fields(o), halves["float32"])
+    if not counts[label]["fano"]:
+        fail("[transfer] the drivers launched the Fano kernel no time")
+    planes = torch.zeros((1, wi.shape[1]), dtype=torch.float32, device=dev)
+    try:
+        prepare_windows_device(planes, planes, device="cpu")
+    except ValueError as exc:
+        log(f"[transfer] prepare_windows_device(<{dev} planes>, "
+            f"device='cpu') raised: {exc}")
+    else:
+        fail("[transfer] prepare_windows_device(device='cpu') took planes "
+             "that lie on the card")
+    log(f"[transfer] seconds of each run on {N} windows ({card}): {secs}; "
+        f"every driver's spots equal decode_channels at its format")
+    return {"windows": N, "differ": differ, "differ_beyond_rounding": beyond,
+            "differ_in_messages": messages, "seconds": secs}
 
 
 # the rank processes of the 2-rank multicli run: multicli.main as a user

@@ -43,4 +43,4 @@ raises without one unless the caller passes ``device="cpu"`` (the CLIs:
 
 __version__ = "0.1.0"
 
-from .config import DecoderOptions  # noqa: F401
+from .config import DecoderOptions, ReceiverOptions  # noqa: F401

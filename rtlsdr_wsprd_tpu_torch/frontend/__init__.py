@@ -7,6 +7,7 @@ stage 1 and stage 2); the fs/4 downmix is folded into the stage-1 taps
 (``filters.py``).
 """
 
+from .channelize import ChannelizingStreamingDecimator  # noqa: F401
 from .decimate import (  # noqa: F401
     BatchedStreamingDecimator,
     StreamingDecimator,
@@ -22,5 +23,10 @@ from .filters import (  # noqa: F401
     STAGE2_TAPS,
     stage1_coeffs,
     stage2_coeffs,
+)
+from .host_decimate import (  # noqa: F401
+    HostBatchedStreamingDecimator,
+    HostStreamingDecimator,
+    resolve_placement,
 )
 from .polyphase import PolyphaseFilter, polyphase_decimate  # noqa: F401

@@ -1,7 +1,8 @@
 """The port's ctypes binding to the native host runtime.
 
 Binds these pieces of ``native/hostdsp.cpp`` (a file of the repository,
-outside either Python package): the sequential host Fano decoder
+outside either Python package): the WSPR callsign hash ``wspr_nhash``
+(lookup3, bit-exact with utils/nhash.py), the sequential host Fano decoder
 ``wspr_fano_decode`` (the reference's wsprd/fano.c semantics, bit for
 bit), the convolutional encoder ``wspr_conv_encode``, the float32 ->
 int8/int16 transfer quantizers ``f32_quantize_i8/i16``, the uint8 IQ
@@ -51,6 +52,8 @@ def _load():
         u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+        lib.wspr_nhash.argtypes = [ctypes.c_char_p, ctypes.c_uint64]
+        lib.wspr_nhash.restype = ctypes.c_uint32
         lib.wspr_fano_decode.argtypes = [
             u8p, i32p, ctypes.c_int32, ctypes.c_uint32, u8p,
             ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_int32),
@@ -83,6 +86,14 @@ def _load():
         lib.wspr_fir_decimate_f32.restype = None
         _lib = lib
         return lib
+
+
+def nhash(callsign: str | bytes) -> int:
+    """The 15-bit WSPR hash of a callsign (wsprd/nhash.c, initval 146)."""
+    lib = _load()
+    if isinstance(callsign, str):
+        callsign = callsign.encode("ascii")
+    return int(lib.wspr_nhash(callsign, len(callsign)))
 
 
 def fano_decode(symbols: np.ndarray, mettab: np.ndarray,

@@ -5,9 +5,9 @@ has no single-process ``NamedSharding``, so a mesh here is the ordered
 device list plus its axis name, and a sharding is a rule that places a
 batch on it:
 
-* ``channel_sharding(mesh)``: contiguous row shards along axis 0, one a
-  device (``_shard_bounds``: the bounds the multi-device decode uses;
-  fewer shards than devices when the batch is smaller);
+* ``channel_sharding(mesh, axis_name)``: contiguous row shards along
+  axis 0, one a device (``_shard_bounds``: the bounds the multi-device
+  decode uses; fewer shards than devices when the batch is smaller);
 * ``replicated(mesh)``: the whole batch on every device.
 
 The decode of one window stays on one device (pure data parallelism);
@@ -92,8 +92,12 @@ def local_mesh(n: int | None = None, axis_name: str = "ch") -> Mesh:
     return make_mesh([f"cuda:{k}" for k in range(n)], axis_name)
 
 
-def channel_sharding(mesh: Mesh) -> ChannelSharding:
-    """Shard the leading (channel/window) axis over the mesh."""
+def channel_sharding(mesh: Mesh, axis_name: str = "ch") -> ChannelSharding:
+    """Shard the leading (channel/window) axis over the mesh's axis
+    ``axis_name``; a name the mesh does not have raises ``ValueError``."""
+    if axis_name != mesh.axis_name:
+        raise ValueError(f"axis_name={axis_name!r}: the mesh's axis is "
+                         f"{mesh.axis_name!r}")
     return ChannelSharding(mesh)
 
 

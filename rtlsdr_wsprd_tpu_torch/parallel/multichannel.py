@@ -115,6 +115,12 @@ _SCALES = {"int8": (np.int8, np.float32(254.0)),
            "int16": (np.int16, np.float32(65534.0))}
 TRANSFER_DTYPES = ("int8", "int16", "float32")
 
+
+def _check_transfer_dtype(transfer_dtype: str) -> None:
+    if transfer_dtype not in TRANSFER_DTYPES:
+        raise ValueError(f"transfer_dtype={transfer_dtype!r}: want one "
+                         f"of {TRANSFER_DTYPES}")
+
 # attempts decoded per channel per pass on the dense path (candidate-
 # major, jitter order); a window whose pre-cap gate count exceeds it is
 # redecoded through the uncapped staged path, so the cap never changes
@@ -662,6 +668,14 @@ def _emit_channel_spots(
     return new_decodes
 
 
+def _indexed(dev: torch.device) -> torch.device:
+    """``cuda`` as the current card's ``cuda:k``; other devices as
+    they are."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
@@ -682,9 +696,7 @@ class _DeviceWindows:
     def __init__(self, cur_i: np.ndarray, cur_q: np.ndarray,
                  device_batch: int, transfer_dtype: str = "int8",
                  device=None):
-        if transfer_dtype not in TRANSFER_DTYPES:
-            raise ValueError(f"transfer_dtype={transfer_dtype!r}: want one "
-                             f"of {TRANSFER_DTYPES}")
+        _check_transfer_dtype(transfer_dtype)
         self.device = resolve_device(device)
         self.device_batch = device_batch
         B = cur_i.shape[0]
@@ -711,9 +723,17 @@ class _DeviceWindows:
 
     @classmethod
     def from_device(cls, di: torch.Tensor, dq: torch.Tensor,
-                    device_batch: int) -> "_DeviceWindows":
+                    device_batch: int, device=None) -> "_DeviceWindows":
         """Wrap float32 (B, SIGNAL_SAMPLES) planes already on their
-        device (e.g. assembled by the on-device front end)."""
+        device (e.g. assembled by the on-device front end). ``device``:
+        None, or the planes' own device (``"cuda"`` is the current
+        card); any other raises: the planes are never copied."""
+        if dq.device != di.device:
+            raise ValueError(f"I on {di.device}, Q on {dq.device}")
+        if device is not None and _indexed(resolve_device(device)) != \
+                _indexed(di.device):
+            raise ValueError(f"device={device!r}, but the windows lie on "
+                             f"{di.device}")
         self = cls.__new__(cls)
         self.device = di.device
         self.device_batch = device_batch
@@ -896,17 +916,22 @@ def prepare_windows(
 
 
 def prepare_windows_device(di: torch.Tensor, dq: torch.Tensor,
-                           device_batch: int = 8) -> _DeviceWindows:
+                           device_batch: int = 8,
+                           device=None) -> _DeviceWindows:
     """Wrap float32 (B, SIGNAL_SAMPLES) planar windows that already lie
     on their device (e.g. the front end's output) as a decode handle:
-    no host round trip of the samples."""
+    no host round trip of the samples. ``device`` (None: the planes'
+    device) names the device the caller expects them on; if the planes
+    lie elsewhere this raises ``ValueError``: nothing is copied. The
+    handle keeps its float32 planes whatever ``transfer_dtype`` a
+    driver is given."""
     if di.ndim != 2 or di.shape[1] != SIGNAL_SAMPLES or di.shape != dq.shape:
         raise ValueError(f"windows must be two (B, {SIGNAL_SAMPLES}) "
                          f"planes, got {tuple(di.shape)}, {tuple(dq.shape)}")
     if di.dtype != torch.float32 or dq.dtype != torch.float32:
         raise TypeError("windows must be float32")
     resolve_device(di.device)
-    return _DeviceWindows.from_device(di, dq, device_batch)
+    return _DeviceWindows.from_device(di, dq, device_batch, device=device)
 
 
 def decode_channels(
@@ -1192,6 +1217,7 @@ def decode_channels_multidevice(
     hashtable: WsprHashTable | None = None,
     devices=None,
     device_batch: int = 64,
+    transfer_dtype: str = "int8",
     fec: str = "auto",
 ) -> list[list[Spot]]:
     """Staged decode across several devices of this process.
@@ -1202,8 +1228,10 @@ def decode_channels_multidevice(
     devices work at the same time; decode is embarrassingly parallel per
     window). ``devices=None`` means every visible CUDA card
     (``cuda:0 .. n-1``), never the CPU; an explicit list may name any
-    devices, the same one more than once. Returns the per-channel spot
-    lists in window order."""
+    devices, the same one more than once. Each shard crosses to its
+    device as ``transfer_dtype`` (see ``_DeviceWindows``). Returns the
+    per-channel spot lists in window order."""
+    _check_transfer_dtype(transfer_dtype)
     devs = resolve_devices(devices)
     i_windows = np.asarray(i_windows, np.float32)
     q_windows = np.asarray(q_windows, np.float32)
@@ -1214,8 +1242,8 @@ def decode_channels_multidevice(
         s0, s1 = shards[k]
         return decode_channels(
             i_windows[s0:s1], q_windows[s0:s1], options, ht,
-            device_batch=min(device_batch, s1 - s0), device=devs[k],
-            fec=fec)
+            device_batch=min(device_batch, s1 - s0),
+            transfer_dtype=transfer_dtype, device=devs[k], fec=fec)
 
     with ThreadPoolExecutor(max_workers=len(shards)) as ex:
         parts = list(ex.map(run, range(len(shards))))
@@ -1228,6 +1256,7 @@ def decode_channels_pipelined_multidevice(
     hashtable: WsprHashTable | None = None,
     depth: int = 2,
     device_batch: int = 64,
+    transfer_dtype: str = "int8",
     fec: str = "auto",
     on_error=None,
     devices=None,
@@ -1242,10 +1271,13 @@ def decode_channels_pipelined_multidevice(
     first pair to split (a stream of handles names no device).
 
     An item of ``batches`` is an ``(i_windows, q_windows)`` float32 pair
-    (split and uploaded here, one contiguous shard per device) or a list
-    of per-shard ``prepare_windows`` / ``prepare_windows_device`` handles,
-    each decoded on the device its windows lie on (a single handle is a
-    one-shard batch); the merged order is the handles' order.
+    (split, and each shard quantized to ``transfer_dtype`` and uploaded
+    here, one contiguous shard per device) or a list of per-shard
+    ``prepare_windows`` / ``prepare_windows_device`` handles, each
+    decoded on the device its windows lie on in the format it was made
+    with (a single handle is a one-shard batch); the merged order is the
+    handles' order. An unknown ``transfer_dtype`` raises ``ValueError``
+    when the first batch is asked for, before any is read.
 
     ``on_error``: per-shard isolation. A failed shard is reported
     (``on_error(exc)``) and yields empty lists for its channels only;
@@ -1257,6 +1289,7 @@ def decode_channels_pipelined_multidevice(
     shard resolves a type-3 on another shard of the same batch.
     ``strict_hash_order`` serializes batches as in
     ``decode_channels_pipelined``."""
+    _check_transfer_dtype(transfer_dtype)
     if strict_hash_order and options.usehashtable:
         depth = 1
     devs: list[torch.device] = []  # resolved at the first pair to split
@@ -1297,7 +1330,7 @@ def decode_channels_pipelined_multidevice(
                 futs.append([_submit(prepare_windows(
                     wi[s0:s1], wq[s0:s1],
                     device_batch=min(device_batch, s1 - s0),
-                    device=devs[k]))
+                    transfer_dtype=transfer_dtype, device=devs[k]))
                     for k, (s0, s1) in enumerate(
                         _shard_bounds(wi.shape[0], len(devs)))])
             while len(futs) >= depth:
@@ -1312,6 +1345,7 @@ def decode_channels_pipelined(
     hashtable: WsprHashTable | None = None,
     depth: int = 2,
     device_batch: int = 64,
+    transfer_dtype: str = "int8",
     device=None,
     fec: str = "auto",
     on_error=None,
@@ -1319,9 +1353,10 @@ def decode_channels_pipelined(
 ):
     """Stream-decode an iterable of window batches ``depth`` deep; yields
     each batch's per-channel spot lists, in order. An item is an
-    ``(i_windows, q_windows)`` float32 pair (quantized and uploaded
-    here to ``device``) or a ``prepare_windows()`` /
-    ``prepare_windows_device()`` handle. The one-device case of
+    ``(i_windows, q_windows)`` float32 pair (quantized to
+    ``transfer_dtype``, see ``_DeviceWindows``, and uploaded here to
+    ``device``) or a ``prepare_windows()`` / ``prepare_windows_device()``
+    handle, which keeps its own format. The one-device case of
     ``decode_channels_pipelined_multidevice``.
 
     Up to ``depth`` batches decode at once, each in ``decode_channels``
@@ -1346,8 +1381,8 @@ def decode_channels_pipelined(
     subtraction of a then-unresolved type 3)."""
     return decode_channels_pipelined_multidevice(
         batches, options, hashtable, depth=depth, device_batch=device_batch,
-        fec=fec, on_error=on_error, devices=[device],
-        strict_hash_order=strict_hash_order)
+        transfer_dtype=transfer_dtype, fec=fec, on_error=on_error,
+        devices=[device], strict_hash_order=strict_hash_order)
 
 
 def shard_windows(i_windows, q_windows, mesh):

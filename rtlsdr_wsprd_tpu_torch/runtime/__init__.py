@@ -14,6 +14,7 @@ from .iqio import (  # noqa: F401
     write_iq_file,
 )
 from .synth import (  # noqa: F401
+    add_awgn,
     selftest_iq,
     synth_raw_2400k,
     synth_wspr_baseband,

@@ -476,17 +476,95 @@ def test_fano_rounds_hybrid_matches_host_rounds():
     assert got[0][0] == 1 and got[3][0] == int(np.nonzero(gate[:, 3])[0][0])
 
 
-def test_pipelined_matches_sequential(wins):
-    """The 2-deep pipelined stream yields each batch's spots equal to
-    decode_channels on that batch, in order."""
+@pytest.mark.parametrize("transfer_dtype", pmc.TRANSFER_DTYPES)
+def test_pipelined_matches_sequential(wins, jax_host_fec, transfer_dtype):
+    """The 2-deep pipelined stream at each transfer format yields each
+    batch's spots equal to decode_channels at that format on that batch,
+    in order, and the JAX package's pipelined stream at the same format
+    (torch_parity.assert_spots_match's tolerances)."""
     wi, wq = wins
     opts = DecoderOptions(**QUICK)
-    want = _spot_fields(pmc.decode_channels(wi, wq, opts, device_batch=3,
-                                            device=CPU))
+    want = _spot_fields(pmc.decode_channels(
+        wi, wq, opts, device_batch=3, transfer_dtype=transfer_dtype,
+        device=CPU))
+    batches = [(wi, wq), (wi[:2], wq[:2]), (wi, wq)]
     out = list(pmc.decode_channels_pipelined(
-        [(wi, wq), (wi[:2], wq[:2]), (wi, wq)], opts, device_batch=3,
+        batches, opts, device_batch=3, transfer_dtype=transfer_dtype,
         device=CPU))
     assert [_spot_fields(o) for o in out] == [want, want[:2], want]
+    ref = list(jmc.decode_channels_pipelined(
+        batches, JOptions(**QUICK), device_batch=3,
+        transfer_dtype=transfer_dtype, fec="host"))
+    assert len(ref) == len(out)
+    for got, r in zip(out, ref):
+        assert_spots_match(got, r)
+    assert sum(len(ch) for ch in out[0]) == 3
+
+
+def test_drivers_reject_unknown_transfer_dtype(wins):
+    """An unknown transfer format raises ValueError in every driver
+    before a batch is read or a window uploaded (the pipelined drivers
+    when their first batch is asked for)."""
+    wi, wq = wins
+    read = []
+
+    def batches():
+        read.append(1)
+        yield wi, wq
+
+    for driver, kw in ((pmc.decode_channels_pipelined, dict(device=CPU)),
+                       (pmc.decode_channels_pipelined_multidevice,
+                        dict(devices=["cpu", "cpu"]))):
+        with pytest.raises(ValueError, match="transfer_dtype"):
+            next(driver(batches(), transfer_dtype="bfloat16", **kw))
+    assert read == []
+    with pytest.raises(ValueError, match="transfer_dtype"):
+        pmc.decode_channels_multidevice(wi, wq, devices=["cpu"],
+                                        transfer_dtype="uint8")
+
+
+def test_prepare_windows_device_device_arg(wins):
+    """prepare_windows_device(device=...): None and the planes' own
+    device wrap them where they lie (the handle's device is theirs, the
+    planes are not copied); any other device raises and nothing is moved
+    or falls back."""
+    wi, wq = wins
+    di, dq = (a[:3].clone() for a in
+              pmc.prepare_windows(wi, wq, device_batch=3, device=CPU).arrays)
+    for device in (None, "cpu", torch.device("cpu")):
+        h = pmc.prepare_windows_device(di, dq, device_batch=3, device=device)
+        assert h.device == torch.device("cpu")
+        assert h.arrays[0].data_ptr() == di.data_ptr()
+    h2 = pmc._DeviceWindows.from_device(di, dq, 2, device="cpu")
+    assert h2.n_pad == 4 and h2.device == torch.device("cpu")
+    with pytest.raises((ValueError, RuntimeError)):
+        pmc.prepare_windows_device(di, dq, device="cuda:0")
+    with pytest.raises(ValueError, match="device"):
+        pmc.prepare_windows_device(di, dq, device="meta")
+    with pytest.raises(ValueError, match="lie on"):
+        pmc._DeviceWindows.from_device(di.to("meta"), dq.to("meta"), 3,
+                                       device="cpu")
+    with pytest.raises(ValueError, match="Q on"):
+        pmc._DeviceWindows.from_device(di, dq.to("meta"), 3)
+
+
+def test_native_nhash_matches_jax_and_python():
+    """native.nhash (wspr_nhash of native/hostdsp.cpp) equals the port's
+    Python hash and, where the JAX package's binding is built, the JAX
+    binding: random keys of 1-29 bytes (the 12-byte block boundary twice)
+    and callsigns as str and bytes."""
+    from rtlsdr_wsprd_tpu_torch.utils.nhash import nhash as py_nhash
+
+    rng = np.random.default_rng(1)
+    keys = [bytes(rng.integers(1, 255, n, dtype=np.uint8))
+            for n in range(1, 30) for _ in range(20)]
+    keys += [b"K1JT", b"G4ABC", b"PJ4/K1ABC"]
+    for key in keys:
+        got = pnative.nhash(key)
+        assert got == py_nhash(key) and 0 <= got < 32768
+        if jnative.AVAILABLE:
+            assert got == jnative.nhash(key)
+    assert pnative.nhash("K1JT") == pnative.nhash(b"K1JT")
 
 
 def test_pipelined_accepts_prepared_handles(wins):

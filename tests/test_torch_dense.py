@@ -323,3 +323,30 @@ def test_mesh_placement():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             pmesh.local_mesh(1)
+
+
+def test_channel_sharding_axis_name():
+    """channel_sharding(mesh, axis_name): the mesh's own axis name shards
+    the rows as the JAX package's NamedSharding does on a mesh of that
+    name; a name the mesh lacks raises ValueError, where the JAX package
+    raises ValueError at placement."""
+    import jax
+
+    x = np.arange(4 * 3, dtype=np.float32).reshape(4, 3)
+    m = pmesh.make_mesh([CPU, CPU], axis_name="seq")
+    sh = pmesh.channel_sharding(m, axis_name="seq")
+    assert sh.mesh is m
+    jm = jmesh.make_mesh(jax.devices()[:2], axis_name="seq")
+    jidx = jmesh.channel_sharding(jm, axis_name="seq").devices_indices_map(
+        x.shape)
+    want = [(jidx[d][0].start, jidx[d][0].stop) for d in jax.devices()[:2]]
+    assert sh.bounds(4) == want == [(0, 2), (2, 4)]
+    np.testing.assert_array_equal(torch.cat(sh.place(x)).numpy(), x)
+    with pytest.raises(ValueError, match="axis"):
+        pmesh.channel_sharding(m)
+    with pytest.raises(ValueError, match="axis"):
+        pmesh.channel_sharding(pmesh.make_mesh([CPU]), axis_name="seq")
+    with pytest.raises(ValueError, match="seq"):
+        jax.device_put(x, jmesh.channel_sharding(jm))
+    assert pmesh.channel_sharding(pmesh.make_mesh([CPU])).mesh.axis_name \
+        == "ch"

@@ -44,33 +44,43 @@ def _fields(per_channel):
              for s in ch] for ch in per_channel]
 
 
-def _per_shard(wi, wq, opts, bounds=(0, 1, 3)):
+def _per_shard(wi, wq, opts, bounds=(0, 1, 3), transfer_dtype="int8"):
     """decode_channels on each shard of the windows in turn: what a
     multi-device decode over those shards computes, field for field (a
     shard's lane buckets and subtraction lanes hold its own windows
     only, so its floats may round otherwise than the whole batch's)."""
     return [ch for s0, s1 in zip(bounds, bounds[1:])
             for ch in pmc.decode_channels(wi[s0:s1], wq[s0:s1], opts,
-                                          device_batch=3, device=CPU)]
+                                          device_batch=3,
+                                          transfer_dtype=transfer_dtype,
+                                          device=CPU)]
 
 
-def test_multidevice_matches_jax(wins, jax_host_fec):
+@pytest.mark.parametrize("transfer_dtype", pmc.TRANSFER_DTYPES)
+def test_multidevice_matches_jax(wins, jax_host_fec, transfer_dtype):
     """decode_channels_multidevice over two CPU devices (shards of 1 and
-    2 windows) gives the JAX package's decode_channels_multidevice spot
-    lists on two of its CPU devices and the port's one-device decode of
-    the whole batch (torch_parity.assert_spots_match's tolerances), and
-    decode_channels on each shard exactly."""
+    2 windows) at each transfer format gives the JAX package's
+    decode_channels_multidevice spot lists on two of its CPU devices at
+    that format and the port's one-device decode of the whole batch at
+    that format (torch_parity.assert_spots_match's tolerances), and
+    decode_channels on each shard at that format exactly."""
     wi, wq = wins
     opts = DecoderOptions(**QUICK)
     got = pmc.decode_channels_multidevice(wi, wq, opts, devices=TWO_CPUS,
-                                          device_batch=3)
+                                          device_batch=3,
+                                          transfer_dtype=transfer_dtype)
     ref = jmc.decode_channels_multidevice(wi, wq, JOptions(**QUICK),
                                           devices=jax.devices()[:2],
-                                          device_batch=3, fec="host")
+                                          device_batch=3,
+                                          transfer_dtype=transfer_dtype,
+                                          fec="host")
     assert_spots_match(got, ref)
-    assert_spots_match(got, pmc.decode_channels(wi, wq, opts, device_batch=3,
-                                                device=CPU))
-    assert _fields(got) == _fields(_per_shard(wi, wq, opts))
+    assert_spots_match(got, pmc.decode_channels(
+        wi, wq, opts, device_batch=3, transfer_dtype=transfer_dtype,
+        device=CPU))
+    assert _fields(got) == _fields(_per_shard(
+        wi, wq, opts, transfer_dtype=transfer_dtype))
+    assert sum(len(ch) for ch in got) == 3
 
 
 def test_pipelined_multidevice_matches_sequential(wins):

@@ -762,18 +762,19 @@ def test_multichannel_daemon_counts_a_failed_batch():
     assert (d.stats.errors, d.stats.window_batches) == (1, 2)
 
 
-@pytest.mark.parametrize("kw, item", [
-    (dict(devices="all"), "Queue 1 item 4"),
-    (dict(devices=["cuda:0", "cuda:1"]), "Queue 1 item 4"),
-    (dict(channelize=[14_095_600, 7_038_600]), "channelizer"),
+@pytest.mark.parametrize("kw, checks", [
+    (dict(devices="all"), "devices all is the CPU device"),
+    (dict(devices=["cuda:0", "cuda:1"]), "absent cards raise"),
+    (dict(channelize=[14_095_600, 7_038_600]), "channelizer in front"),
 ])
-def test_multichannel_daemon_later_slices_raise(kw, item):
-    """The settings that raised NotImplementedError until their ROADMAP
-    item (``item``) landed now configure the daemon: ``devices="all"``
-    on the CPU decodes on the one CPU device, a list of cards that are
-    not there raises (nothing falls back to the CPU), and ``channelize``
-    puts the channelizer in front, one output channel per dial at
-    offset ``options.freq - dial``, the dials as ``dialfreqs``."""
+def test_multichannel_daemon_later_slices_raise(kw, checks):
+    """The settings that raised NotImplementedError in an earlier slice
+    now configure the daemon (``checks`` names the case):
+    ``devices="all"`` on the CPU decodes on the one CPU device, a list
+    of cards that are not there raises (nothing falls back to the CPU),
+    and ``channelize`` puts the channelizer in front, one output channel
+    per dial at offset ``options.freq - dial``, the dials as
+    ``dialfreqs``."""
     from rtlsdr_wsprd_tpu_torch.frontend.channelize import (
         ChannelizingStreamingDecimator,
     )
