@@ -1861,15 +1861,15 @@ _Spot = collections.namedtuple(
 
 def phase_transfer(dev, card, wi, wq, counts, shapes_by_path, DB,
                    shard: str = "cuda:0"):
-    """The drivers' transfer formats on the batch's first TRANSFER_N
-    windows (fec 'auto'): decode_channels_pipelined over 2 batches at
-    int16 and at float32, decode_channels_multidevice on two shards of
-    ``shard`` at int16, and decode_channels_pipelined_multidevice fed
-    per-shard prepare_windows_device handles (float32 planes already on
-    ``shard``, the device-fed front end's layout); each equal in every spot
-    field to decode_channels at the same format on the same windows (the
-    whole batch, or each half). A handle asked for on another device
-    than its planes' must raise. Every driver run is one counted path,
+    """The decode entry points' transfer formats on the batch's first
+    TRANSFER_N windows (fec 'auto'): decode_channels_pipelined over 2
+    batches at int16 and at float32, decode_channels_multidevice on two
+    shards of ``shard`` at int16, and decode_channels_pipelined_multidevice
+    fed per-shard prepare_windows_device handles (float32 planes already
+    on ``shard``, the device-fed front end's layout); each equal in every
+    spot field to decode_channels at the same format on the same windows
+    (the whole batch, or each half). A handle asked for on another device
+    than its planes' must raise. Every decode run is one counted path,
     ``transfer``. Returns the seconds of each run and the windows that
     differ between the formats."""
     from rtlsdr_wsprd_tpu_torch.config import DecoderOptions
@@ -1960,7 +1960,7 @@ def phase_transfer(dev, card, wi, wq, counts, shapes_by_path, DB,
             check(f"pipelined multidevice, shard handles, batch {k}",
                   _fields(o), halves["float32"])
     if not counts[label]["fano"]:
-        fail("[transfer] the drivers launched the Fano kernel no time")
+        fail("[transfer] the decodes launched the Fano kernel no time")
     planes = torch.zeros((1, wi.shape[1]), dtype=torch.float32, device=dev)
     try:
         prepare_windows_device(planes, planes, device="cpu")
@@ -1971,7 +1971,7 @@ def phase_transfer(dev, card, wi, wq, counts, shapes_by_path, DB,
         fail("[transfer] prepare_windows_device(device='cpu') took planes "
              "that lie on the card")
     log(f"[transfer] seconds of each run on {N} windows ({card}): {secs}; "
-        f"every driver's spots equal decode_channels at its format")
+        f"every decode's spots equal decode_channels at its format")
     return {"windows": N, "differ": differ, "differ_beyond_rounding": beyond,
             "differ_in_messages": messages, "seconds": secs}
 

@@ -923,8 +923,8 @@ def prepare_windows_device(di: torch.Tensor, dq: torch.Tensor,
     no host round trip of the samples. ``device`` (None: the planes'
     device) names the device the caller expects them on; if the planes
     lie elsewhere this raises ``ValueError``: nothing is copied. The
-    handle keeps its float32 planes whatever ``transfer_dtype`` a
-    driver is given."""
+    handle keeps its float32 planes whatever ``transfer_dtype`` the
+    decode it is fed to is given."""
     if di.ndim != 2 or di.shape[1] != SIGNAL_SAMPLES or di.shape != dq.shape:
         raise ValueError(f"windows must be two (B, {SIGNAL_SAMPLES}) "
                          f"planes, got {tuple(di.shape)}, {tuple(dq.shape)}")

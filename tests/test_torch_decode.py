@@ -501,10 +501,10 @@ def test_pipelined_matches_sequential(wins, jax_host_fec, transfer_dtype):
     assert sum(len(ch) for ch in out[0]) == 3
 
 
-def test_drivers_reject_unknown_transfer_dtype(wins):
-    """An unknown transfer format raises ValueError in every driver
-    before a batch is read or a window uploaded (the pipelined drivers
-    when their first batch is asked for)."""
+def test_decoders_reject_unknown_transfer_dtype(wins):
+    """An unknown transfer format raises ValueError in every stream and
+    multi-device decode before a batch is read or a window uploaded (the
+    pipelined ones when their first batch is asked for)."""
     wi, wq = wins
     read = []
 
@@ -512,11 +512,11 @@ def test_drivers_reject_unknown_transfer_dtype(wins):
         read.append(1)
         yield wi, wq
 
-    for driver, kw in ((pmc.decode_channels_pipelined, dict(device=CPU)),
+    for decode, kw in ((pmc.decode_channels_pipelined, dict(device=CPU)),
                        (pmc.decode_channels_pipelined_multidevice,
                         dict(devices=["cpu", "cpu"]))):
         with pytest.raises(ValueError, match="transfer_dtype"):
-            next(driver(batches(), transfer_dtype="bfloat16", **kw))
+            next(decode(batches(), transfer_dtype="bfloat16", **kw))
     assert read == []
     with pytest.raises(ValueError, match="transfer_dtype"):
         pmc.decode_channels_multidevice(wi, wq, devices=["cpu"],
