@@ -148,6 +148,25 @@ Phases, in order; any failure exits non-zero before the last line:
             its K rows, beside the time of K one-filter launches), and
             every one-filter shape against a bank of C copies of its
             filter, bit for bit.
+11. quality the port's decode-quality studies (tools/torch_*.py) at
+            reduced sizes on the card, through their own builders and
+            decode functions with device=None, every Fano launch counted
+            from 0 around them: the SNR sweep on the same windows at
+            int8, int16 and float32 (-24 and -28 dB, 50 trials each, at
+            least 49 and 47 found at every format; -29, -30 and -31 dB,
+            100 trials each, at least 86, 36 and 2 found: the JAX
+            package's recorded 274/300, 138/300 and 20/300 less their 2
+            sigma binomial band at 100 trials), the windows whose decoded
+            message sets differ between formats, the fields that move
+            and any other message printed; the drift x DT matrix at
+            -27 dB, 10 trials a cell, at least 8 found in every cell;
+            the crowded band on 40 windows at npasses 2 and 3, precision
+            and recall at least 0.68 each; the hash census on 8 pairs,
+            every type-3 spot resolved in both modes. The -30 dB
+            windows also decode with fec="host": as many found at int8
+            as with fec="auto". The handle of
+            prepare_windows(device=None), make_mesh(["cuda"]) and
+            MultiChannelDaemon(device=None) must name cuda:0.
 
 Then a JSON line per kernel, the card's name and power limit, and the
 last line ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits
@@ -2099,6 +2118,149 @@ def phase_distributed(card, chunks):
     return counts, shapes_by_path
 
 
+# (SNR dB, trials, least found at every format): above the floor the
+# JAX package's records are 100/100; at the floor its 274/300, 138/300
+# and 20/300 less 2 binomial sigma at n = 100
+QUALITY_SWEEP = ((-24, 50, 49), (-28, 50, 47), (-29, 100, 86),
+                 (-30, 100, 36), (-31, 100, 2))
+QUALITY_FORMATS = ("int8", "int16", "float32")
+QUALITY_HOST_DB = -30  # the point also decoded with fec="host"
+# drift x DT at -27 dB: (trials a cell, least found; JAX: 47-50/50)
+QUALITY_MATRIX = (10, 8)
+# crowded band: (windows, least precision and recall; JAX: 0.7385/0.7356
+# on 100 windows, less 2 sigma at ~300 messages)
+QUALITY_CROWDED = (40, 0.68)
+QUALITY_PAIRS = 8  # hash census pairs (JAX: every type-3 resolved)
+
+
+def phase_quality(card):
+    """The decode-quality studies at reduced sizes (see the module
+    docstring), each through its tool's builder and decode function on
+    the card (device=None), then the handles that device=None makes.
+    Returns the studies' launches by kernel, as counted_path notes them."""
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import torch_crowded_band as crowded
+    import torch_hash_census as census
+    import torch_sensitivity_matrix as matrix
+    import torch_snr_sweep as sweep
+
+    from rtlsdr_wsprd_tpu_torch.config import DecoderOptions
+    from rtlsdr_wsprd_tpu_torch.parallel.mesh import make_mesh
+    from rtlsdr_wsprd_tpu_torch.parallel.multichannel import prepare_windows
+    from rtlsdr_wsprd_tpu_torch.runtime.multidaemon import MultiChannelDaemon
+
+    t_phase = time.perf_counter()
+    summary: dict = {"card": card}
+    counts: dict[str, dict] = {}
+    with counted_path("quality", counts, {}, phase="quality"):
+        t0 = time.perf_counter()
+        trials, floor = QUALITY_SWEEP[0][1], QUALITY_SWEEP[-1][1]
+        points = []
+        for (snr, wi, wq), (_, T, least) in zip(
+                sweep.build_windows(trials, floor,
+                                    [p[0] for p in QUALITY_SWEEP]),
+                QUALITY_SWEEP):
+            if wi.shape[0] != T:
+                fail(f"[quality] sweep point {snr} dB: {wi.shape[0]} "
+                     f"windows, want {T}")
+            r = sweep.sweep_point(snr, wi, wq, QUALITY_FORMATS)
+            secs = {f: round(x, 3) for f, x in r["seconds"].items()}
+            log(f"[quality] sweep {snr} dB: found {r['found']} of {T} "
+                f"(least {least}); seconds {secs} ({card}); between "
+                f"formats {r['between_formats']}; messages other than "
+                f"{sweep.MSG!r}: {r['other_messages']}")
+            low = {f: n for f, n in r["found"].items() if n < least}
+            if low:
+                fail(f"[quality] sweep {snr} dB: found {low} of {T}, "
+                     f"fewer than {least}")
+            if snr == QUALITY_HOST_DB:
+                # hybrid spots equal host spots, so the floor's count
+                # does not depend on the FEC mode fec="auto" picked
+                n_host = int(sweep.found(
+                    sweep.decode(wi, wq, "int8", fec="host")).sum())
+                log(f"[quality] sweep {snr} dB, int8: found {n_host} with "
+                    f"fec='host', {r['found']['int8']} with fec='auto'")
+                if n_host != r["found"]["int8"]:
+                    fail(f"[quality] sweep {snr} dB: fec='host' finds "
+                         f"{n_host}, fec='auto' {r['found']['int8']}")
+                r["found_int8_fec_host"] = n_host
+            points.append(r)
+        summary["sweep"] = points
+        summary["sweep_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        cells = []
+        T, least = QUALITY_MATRIX
+        for drift, dt0, wi, wq in matrix.build_cells(T, -27.0):
+            n = int(matrix.decode_cell(wi, wq).sum())
+            cells.append({"drift": drift, "t0": dt0, "found": n})
+            if n < least:
+                fail(f"[quality] matrix drift {drift} Hz, t0 {dt0} s: "
+                     f"{n}/{T} found, fewer than {least}")
+        log(f"[quality] drift x DT at -27 dB, int8, {T} trials a cell: "
+            f"{[c['found'] for c in cells]} (drift rows "
+            f"{matrix.DRIFTS}, t0 columns {matrix.DTS}); every cell >= "
+            f"{least} ({time.perf_counter() - t0:.1f} s)")
+        summary["matrix"] = cells
+        summary["matrix_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        n_win, least = QUALITY_CROWDED
+        wi, wq, truth = crowded.build_windows(n_win, 12)
+        by_cfg = crowded.decode(wi, wq, crowded.parse_configs("2,3"))
+        summary["crowded"] = {}
+        for cfg, ours in by_cfg.items():
+            tp, fp, fn, prec, rec = crowded.prf(ours, truth)
+            log(f"[quality] crowded band, {n_win} windows, "
+                f"{sum(map(len, truth))} true messages, npasses={cfg[0]}: "
+                f"tp={tp} fp={fp} fn={fn} precision={prec:.4f} "
+                f"recall={rec:.4f}")
+            if min(prec, rec) < least:
+                fail(f"[quality] crowded band npasses={cfg[0]}: precision "
+                     f"{prec:.4f}, recall {rec:.4f}, below {least}")
+            summary["crowded"][f"npasses={cfg[0]}"] = [prec, rec]
+        same = sum(a == b for a, b in zip(*by_cfg.values()))
+        log(f"[quality] crowded band: npasses=3 decodes the npasses=2 "
+            f"message set in {same}/{n_win} windows "
+            f"({time.perf_counter() - t0:.1f} s)")
+        summary["crowded"]["npasses3_equal_windows"] = same
+        summary["crowded_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        batches, expect = census.build_stream(QUALITY_PAIRS)
+        summary["census"] = []
+        for strict in (False, True):
+            r = census.run(batches, expect, strict)
+            log(f"[quality] hash census, {QUALITY_PAIRS} pairs: "
+                f"{json.dumps(r)}")
+            if (r["type3_resolved_gap1"] + r["type3_resolved_gap2"]
+                    != QUALITY_PAIRS
+                    or r["type3_hashed_gap1"] or r["type3_hashed_gap2"]
+                    or r["type3_undecoded"]):
+                fail(f"[quality] hash census {r['mode']}: not every type-3 "
+                     f"spot resolved: {r}")
+            summary["census"].append(r)
+        summary["census_s"] = time.perf_counter() - t0
+    if not counts["quality"]["fano"]:
+        fail("[quality] the studies launched the Fano kernel no time")
+
+    card0 = torch.device("cuda", 0)
+    handle = prepare_windows(wi[:1], wq[:1], 1, device=None)
+    named = {"prepare_windows": handle.device,
+             "make_mesh": make_mesh(["cuda"]).devices,
+             "MultiChannelDaemon": MultiChannelDaemon(
+                 type("Bank", (), {"n_channels": 1})(), DecoderOptions(),
+                 device=None).devices}
+    log(f"[quality] device=None names: {named}")
+    if named != {"prepare_windows": card0, "make_mesh": (card0,),
+                 "MultiChannelDaemon": [card0]}:
+        fail(f"[quality] device=None does not name cuda:0: {named}")
+    summary["seconds"] = time.perf_counter() - t_phase
+    log(f"[quality] phase {summary['seconds']:.1f} s ({card})")
+    log(json.dumps({"quality": summary}))
+    return counts
+
+
 def counting_calibrations() -> list:
     """Wrap ops/calibrate.py's measurement so that each one is noted
     (the device it was asked for); returns the list it fills."""
@@ -2144,6 +2306,7 @@ def main() -> None:
     rows += phase_kernel(dev, name, {
         p: s for p, s in {**daemon_shapes, **chan_shapes,
                           **dist_shapes}.items() if s}, extras=False)
+    quality_counts = phase_quality(card)
     # every path counted from 0 after the front-end phases, by kernel
     paths = {**daemon_counts, **chan_counts, **md_counts, **dist_counts}
     # cuda, cuda:0 and None (describe, the CLIs) name one card: one
@@ -2187,7 +2350,7 @@ def main() -> None:
         main_input = "decode attempts"
     fano_main = next(r for r in fano_rows if r["input"] == main_input
                      and r["calibrated"])
-    fano_paths = {**dense_counts, **paths}
+    fano_paths = {**dense_counts, **paths, **quality_counts}
     kernels.append({
         "name": "batched_fano",
         "route": "cuda",

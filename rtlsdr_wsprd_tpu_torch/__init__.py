@@ -36,7 +36,8 @@ framework-free modules (constants, codecs, filter design, synthesis).
                  the uint8 IQ ingest and the host polyphase front end.
 * ``convert``  — the JAX package's constant tables as the port's.
 
-Every entry point takes ``device=None``, meaning the CUDA card, and
+Every entry point takes ``device=None``, meaning the CUDA card (the
+calling thread's current one, named by its index: ``cuda:k``), and
 raises without one unless the caller passes ``device="cpu"`` (the CLIs:
 ``--compute-device cpu``).
 """

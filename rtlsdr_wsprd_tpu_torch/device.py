@@ -1,9 +1,12 @@
 """Device resolution and constant tables for every entry point of the port.
 
-Entry points take ``device=None``, which means the CUDA card. On a host
-without CUDA such a call raises: the port never falls back to the CPU
-on its own. Callers that want the CPU (the tests) pass ``device="cpu"``
-and then run every kernel's plain PyTorch version.
+Entry points take ``device=None``, which means the calling thread's
+current CUDA card, named by its index (``cuda:k``): a handle, mesh or
+daemon made on card k stays on card k when worker threads, whose current
+card is 0, decode it. On a host without CUDA such a call raises: the
+port never falls back to the CPU on its own. Callers that want the CPU
+(the tests) pass ``device="cpu"`` and then run every kernel's plain
+PyTorch version.
 
 Matrix products stay in full float32: the JAX package computes its
 correlators in float32 off the TPU, and this port keeps TF32 off until
@@ -17,13 +20,16 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> ``cuda``; raises if CUDA is asked for and absent."""
+    """``None`` or ``cuda`` -> ``cuda:<current card>``; raises if CUDA is
+    asked for and absent."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available; pass device='cpu' to run the "
                 "plain PyTorch versions on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     elif dev.type != "cpu":
@@ -47,7 +53,7 @@ def resolve_devices(devices=None) -> list[torch.device]:
     if not devs:
         raise ValueError("no devices given")
     for d in devs:
-        if d.type == "cuda" and (d.index or 0) >= torch.cuda.device_count():
+        if d.type == "cuda" and d.index >= torch.cuda.device_count():
             raise ValueError(f"{d}: this host has "
                              f"{torch.cuda.device_count()} CUDA card(s)")
     return devs

@@ -46,6 +46,7 @@ import torch
 
 from .. import native
 from ..config import NBITS
+from ..device import resolve_device
 from .fano_hybrid import DEVICE_MAXCYCLES as DEFAULT_DEVICE_MAXCYCLES
 
 _LOG = logging.getLogger("rtlsdr_wsprd_tpu_torch.calibrate")
@@ -79,6 +80,7 @@ def measure_device_fano_cycle_ms(device=None, lanes: int = 32) -> float:
     if dev.type != "cuda":
         raise ValueError(f"the device Fano is measured on a CUDA device, "
                          f"not {dev}")
+    dev = resolve_device(dev)
     rng = np.random.default_rng(20260821)
     syms = torch.from_numpy(
         rng.integers(0, 256, (lanes, 2 * NBITS), dtype=np.uint8)).to(dev)
@@ -144,7 +146,7 @@ def _cuda_device(device) -> torch.device | None:
     dev = torch.device("cuda" if device is None else device)
     if dev.type != "cuda" or not torch.cuda.is_available():
         return None
-    return dev
+    return resolve_device(dev)
 
 
 _CACHE: dict = {}
@@ -155,10 +157,10 @@ def _cache_key(device) -> str:
     """The calibration's cache key: the indexed device, so that None,
     ``cuda`` and ``cuda:<current device>`` share one measurement
     (``cuda:0`` where CUDA is absent)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and dev.index is None:
-        idx = torch.cuda.current_device() if torch.cuda.is_available() else 0
-        dev = torch.device("cuda", idx)
+    dev = _cuda_device(device) or torch.device(
+        "cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None:  # no CUDA here
+        dev = torch.device("cuda", 0)
     return str(dev)
 
 

@@ -44,7 +44,7 @@ import torch
 
 from ..buildlib import build_shared, nvcc_path
 from ..config import NBITS
-from ..device import derived_const
+from ..device import derived_const, resolve_device
 from ..utils.channel import POLY1, POLY2
 from ..utils.metric_tables import METRIC_TABLES
 
@@ -324,9 +324,7 @@ def device_mettab(device) -> torch.Tensor:
     (until ``device.clear_consts``). ``batched_fano`` takes this tensor
     without reading it back; any other table costs a read-back a call.
     ``cuda`` names the current card, as a tensor's device names it."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
+    dev = resolve_device(device)
     return derived_const(_check_table_range, (METTAB,), dev)
 
 

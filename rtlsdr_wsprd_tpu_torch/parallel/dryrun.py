@@ -224,8 +224,6 @@ def dryrun_multichip(n_procs: int = 2, device=None) -> list[dict]:
     rank has finished and rank 0's checks passed; raises otherwise (the
     other ranks are stopped)."""
     dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
     results = torch.multiprocessing.get_context("spawn").SimpleQueue()
     torch.multiprocessing.spawn(
         _rank_main, args=(n_procs, _free_port(), str(dev), results),

@@ -668,14 +668,6 @@ def _emit_channel_spots(
     return new_decodes
 
 
-def _indexed(dev: torch.device) -> torch.device:
-    """``cuda`` as the current card's ``cuda:k``; other devices as
-    they are."""
-    if dev.type == "cuda" and dev.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
@@ -730,8 +722,7 @@ class _DeviceWindows:
         card); any other raises: the planes are never copied."""
         if dq.device != di.device:
             raise ValueError(f"I on {di.device}, Q on {dq.device}")
-        if device is not None and _indexed(resolve_device(device)) != \
-                _indexed(di.device):
+        if device is not None and resolve_device(device) != di.device:
             raise ValueError(f"device={device!r}, but the windows lie on "
                              f"{di.device}")
         self = cls.__new__(cls)

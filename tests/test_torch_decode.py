@@ -33,6 +33,9 @@ from torch_parity import jax_host_fec  # noqa: F401  (fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 QUICK = dict(quickmode=True)
+# the port's decode-quality studies, beside the JAX package's tools
+TOOLS = ("torch_snr_sweep", "torch_sensitivity_matrix", "torch_crowded_band",
+         "torch_hash_census")
 
 
 @pytest.fixture(scope="module")
@@ -363,7 +366,8 @@ def test_entry_points_default_to_cuda():
 
 def test_import_leaves_jax_out():
     """In a fresh interpreter, importing every module of the port (and
-    chip_smoke.py) loads neither jax nor the JAX package; the walk
+    chip_smoke.py and the port's tools/torch_*.py studies) loads neither
+    jax nor the JAX package; the walk
     reaches the FEC modules (ops.fano, ops.fano_hybrid, ops.calibrate),
     the runtime layer, both CLIs, the channelizer, the multi-host
     runtime (parallel.distributed, parallel.streaming, parallel.dryrun)
@@ -374,6 +378,9 @@ def test_import_leaves_jax_out():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "sys.path.insert(0, 'tools')\n"
+        f"for t in {TOOLS!r}:\n"
+        "    importlib.import_module(t)\n"
         "new = ('ops.fano', 'ops.fano_hybrid', 'ops.calibrate', 'cli',\n"
         "       'multicli', 'frontend.host_decimate', 'runtime.reporting',\n"
         "       'runtime.sources', 'runtime.banks', 'runtime.scheduler',\n"
@@ -392,10 +399,12 @@ def test_import_leaves_jax_out():
 
 
 def test_sources_import_no_jax():
-    """No import statement of the port or of chip_smoke.py names jax or
-    the JAX package (an AST scan, so lazy imports count too)."""
+    """No import statement of the port, of chip_smoke.py or of the
+    port's tools/torch_*.py studies names jax or the JAX package (an AST
+    scan, so lazy imports count too)."""
     files = sorted((REPO / "rtlsdr_wsprd_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    files += [REPO / "tools" / f"{t}.py" for t in TOOLS]
     assert len(files) > 20
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):

@@ -145,6 +145,28 @@ def test_pipelined_multidevice_isolates_a_failed_shard(wins, monkeypatch):
             depth=1))
 
 
+def test_unindexed_cuda_names_the_current_card(monkeypatch):
+    """None and a bare ``cuda`` name the calling thread's current card by
+    its index (here card 1 of 2), so a handle, mesh or daemon made on it
+    stays on it when worker threads, whose current card is 0, decode."""
+    from rtlsdr_wsprd_tpu_torch.device import resolve_device
+    from rtlsdr_wsprd_tpu_torch.parallel.mesh import make_mesh
+    from rtlsdr_wsprd_tpu_torch.runtime.multidaemon import MultiChannelDaemon
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    card1 = torch.device("cuda", 1)
+    assert resolve_device(None) == resolve_device("cuda") == card1
+    assert str(resolve_device(None)) == "cuda:1"
+    assert resolve_devices(["cuda"]) == [card1]
+    assert make_mesh(["cuda"]).devices == (card1,)
+    daemon = MultiChannelDaemon(type("Bank", (), {"n_channels": 1})(),
+                                DecoderOptions(), frontend="host",
+                                device=None)
+    assert daemon.device == card1 and daemon.devices == [card1]
+
+
 def test_device_lists_never_fall_back():
     """devices=None means every visible CUDA card and raises without one;
     a card that is not there raises; CPU entries resolve."""
