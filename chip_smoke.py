@@ -187,6 +187,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
+sys.path.insert(0, os.path.join(HERE, "tools"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -1581,17 +1582,19 @@ def phase_daemon(dev, card, chunks, laneI, laneQ):
 
 
 def _mismatches(got, want) -> list[int]:
-    """Channels whose spot lists differ beyond float rounding: message,
-    jitter, cycles and drift equal, freq within 1e-7 MHz, dt within one
-    sample (1/375 s), snr within 0.01 dB, sync within 1e-4 (sums over
-    lane buckets of other sizes round otherwise on the card)."""
+    """Channels whose spot lists differ beyond float rounding: message
+    equal, every other field within tools/torch_snr_sweep.py's FIELD_TOL
+    (freq 1e-7 MHz, dt one sample, snr 0.01 dB, sync 1e-4, since sums
+    over lane buckets of other sizes round otherwise on the card; drift,
+    cycles and jitter exact)."""
+    from torch_snr_sweep import FIELD_TOL
+
     bad = []
     for b, (g, w) in enumerate(zip(got, want)):
         if len(g) != len(w) or any(
-                (x.message, x.jitter, x.cycles, x.drift)
-                != (y.message, y.jitter, y.cycles, y.drift)
-                or abs(x.freq - y.freq) > 1e-7 or abs(x.dt - y.dt) > 1 / 375
-                or abs(x.snr - y.snr) > 0.01 or abs(x.sync - y.sync) > 1e-4
+                x.message != y.message
+                or any(abs(getattr(x, f) - getattr(y, f)) > tol
+                       for f, tol in FIELD_TOL)
                 for x, y in zip(g, w)):
             bad.append(b)
     return bad + list(range(min(len(got), len(want)),
@@ -2138,7 +2141,6 @@ def phase_quality(card):
     docstring), each through its tool's builder and decode function on
     the card (device=None), then the handles that device=None makes.
     Returns the studies' launches by kernel, as counted_path notes them."""
-    sys.path.insert(0, os.path.join(HERE, "tools"))
     import torch_crowded_band as crowded
     import torch_hash_census as census
     import torch_sensitivity_matrix as matrix

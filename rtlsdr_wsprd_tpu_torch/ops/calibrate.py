@@ -76,11 +76,10 @@ def measure_device_fano_cycle_ms(device=None, lanes: int = 32) -> float:
     that is not CUDA."""
     from .fano import batched_fano, device_mettab
 
-    dev = torch.device("cuda" if device is None else device)
+    dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError(f"the device Fano is measured on a CUDA device, "
                          f"not {dev}")
-    dev = resolve_device(dev)
     rng = np.random.default_rng(20260821)
     syms = torch.from_numpy(
         rng.integers(0, 256, (lanes, 2 * NBITS), dtype=np.uint8)).to(dev)
@@ -143,10 +142,10 @@ def _bucket_budget(raw: float) -> int:
 def _cuda_device(device) -> torch.device | None:
     """The CUDA device a calibration for ``device`` measures on, or None
     when there is none (``device`` names another type, or no CUDA)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type != "cuda" or not torch.cuda.is_available():
+    if not torch.cuda.is_available():
         return None
-    return resolve_device(dev)
+    dev = resolve_device(device)
+    return dev if dev.type == "cuda" else None
 
 
 _CACHE: dict = {}
@@ -154,13 +153,12 @@ _CACHE_LOCK = threading.Lock()
 
 
 def _cache_key(device) -> str:
-    """The calibration's cache key: the indexed device, so that None,
-    ``cuda`` and ``cuda:<current device>`` share one measurement
-    (``cuda:0`` where CUDA is absent)."""
-    dev = _cuda_device(device) or torch.device(
-        "cuda" if device is None else device)
-    if dev.type == "cuda" and dev.index is None:  # no CUDA here
-        dev = torch.device("cuda", 0)
+    """The calibration's cache key: the indexed card, so that None,
+    ``cuda`` and ``cuda:<current card>`` share one measurement; where
+    there is no card to measure, the device type."""
+    dev = _cuda_device(device)
+    if dev is None:
+        return torch.device("cuda" if device is None else device).type
     return str(dev)
 
 

@@ -4,6 +4,7 @@ against the JAX package's tools, on the CPU: each builder gives the JAX
 tool's windows bit for bit from the same seeds, and each decode function
 gives what the JAX package's decode gives on the same windows."""
 
+import importlib
 import sys
 from pathlib import Path
 
@@ -21,16 +22,25 @@ from torch_parity import CPU
 from torch_parity import jax_host_fec  # noqa: F401  (fixture)
 from torch_parity import port_calibration  # noqa: F401  (fixture)
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 
-import crowded_band as jcrowded  # noqa: E402
-import hash_census as jcensus  # noqa: E402
-import sensitivity_matrix as jmatrix  # noqa: E402
-import snr_sweep as jsweep  # noqa: E402
-import torch_crowded_band as pcrowded  # noqa: E402
-import torch_hash_census as pcensus  # noqa: E402
-import torch_sensitivity_matrix as pmatrix  # noqa: E402
-import torch_snr_sweep as psweep  # noqa: E402
+
+def _import_tools(*names):
+    """The tools/ modules ``names``, imported with sys.path restored
+    afterwards: the tools put their own directories on it, and other
+    test files run later in the same process."""
+    saved = list(sys.path)
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+    try:
+        return [importlib.import_module(n) for n in names]
+    finally:
+        sys.path[:] = saved
+
+
+(jcrowded, jcensus, jmatrix, jsweep,
+ pcrowded, pcensus, pmatrix, psweep) = _import_tools(
+    "crowded_band", "hash_census", "sensitivity_matrix", "snr_sweep",
+    "torch_crowded_band", "torch_hash_census", "torch_sensitivity_matrix",
+    "torch_snr_sweep")
 
 
 def _jax_window(msg, rng, **kw):

@@ -60,11 +60,11 @@ def random_message(rng: np.random.Generator, ht: WsprHashTable) -> str:
             return msg
 
 
-def build_windows(n_windows: int, max_sig: int, seed: int = SEED):
+def build_windows(n_windows: int, max_sig: int):
     """``(wi, wq, truth)``: ``n_windows`` normalized windows of 4..max_sig
     signals each and every window's set of true messages, drawn as
     tools/crowded_band.py draws them."""
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(SEED)
     ht = WsprHashTable()
     wi = np.zeros((n_windows, 45000), np.float32)
     wq = np.zeros((n_windows, 45000), np.float32)

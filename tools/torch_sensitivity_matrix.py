@@ -40,12 +40,11 @@ DTS = [0.0, 1.0, 2.0, 3.0, 4.0]  # t0 seconds (nominal 2.0; +-2 s)
 SEED = 20260820
 
 
-def build_cells(trials: int, snr: float, drifts=DRIFTS, dts=DTS,
-                seed: int = SEED):
+def build_cells(trials: int, snr: float, drifts=DRIFTS, dts=DTS):
     """Yield ``(drift, t0, wi, wq)`` cell by cell (drift rows, DT
     columns), ``trials`` normalized windows a cell, from one seed stream
     drawn as tools/sensitivity_matrix.py draws it."""
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(SEED)
     for drift in drifts:
         for t0 in dts:
             wi = np.zeros((trials, 45000), np.float32)

@@ -49,8 +49,8 @@ SEED = 2026
 FLOOR_DB = -29
 SLICE = 128  # windows a decode call: bounds what is on the device
 # spot fields compared between formats, with the float tolerances the
-# port's decode paths are held to on the card (float rounding); the
-# integer fields must be equal
+# port's decode paths are held to on the card (float rounding; chip_smoke.py
+# holds its paths to this table too); the integer fields must be equal
 FIELD_TOL = (("snr", 0.01), ("dt", 1 / 375), ("freq", 1e-7),
              ("sync", 1e-4), ("drift", 0), ("cycles", 0), ("jitter", 0))
 
@@ -82,12 +82,11 @@ def point_windows(rng: np.random.Generator, snr: float, trials: int):
     return wi, wq
 
 
-def build_windows(trials: int, floor_trials: int = 0, snrs=SNRS,
-                  seed: int = SEED):
+def build_windows(trials: int, floor_trials: int = 0, snrs=SNRS):
     """Yield ``(snr, wi, wq)`` point by point, from one seed stream in
     the JAX tool's order: ``trials`` windows a point,
     ``max(trials, floor_trials)`` at or below -29 dB."""
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(SEED)
     for snr in snrs:
         T = max(trials, floor_trials) if snr <= FLOOR_DB else trials
         yield (snr, *point_windows(rng, snr, T))
