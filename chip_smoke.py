@@ -119,6 +119,20 @@ Phases, in order; any failure exits non-zero before the last line:
             raising; and, inside the daemon
             phase, the 8-channel daemon again with devices [cuda:0,
             cuda:0], its spots equal to the default run's.
+   e2e_device
+            the device-resident ingest -> spots chain
+            (tools/torch_e2e_sweep.py) on the batch's first 128 windows,
+            one counted path: raw uint8 made on the card, 30 fused
+            front-end steps of 120,000 frames a window (uint8 stage 1 on
+            polyphase_tc, stage 2 on polyphase.cu), the window assembled
+            on the card and decoded from its prepare_windows_device
+            handle; one checked round, its spots equal in every field to
+            decode_channels on a host copy of the same planes at
+            float32, every +3 dB message found; then measure_e2e_device
+            over 2 timed windows (realtime channels per card, seconds
+            and steps a window); all three kernels launched; each
+            polyphase kernel against the plain version at the chain's
+            shapes.
 9. channelize
             ChannelizingStreamingDecimator at offset 0 against
             BatchedStreamingDecimator(1) on the capture (within 1e-5 of
@@ -192,16 +206,15 @@ sys.path.insert(0, os.path.join(HERE, "tools"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# published peaks by card name (NVIDIA data sheets, dense, no sparsity):
-# float32 outside the tensor cores, TF32 on the tensor cores, and
-# device-memory bandwidth. The int32 operation rate is a quarter of the
-# float32 rate: an SM has half as many INT32 lanes as FP32 lanes, and
-# the float32 peak counts an FMA as two operations.
-PEAKS = (
-    ("H100 PCIe", 51e12, 378e12, 2.0e12),
-    ("H100 NVL", 60e12, 378e12, 3.9e12),
-    ("H100", 67e12, 495e12, 3.35e12),   # SXM5
-    ("H200", 67e12, 495e12, 4.8e12),
+from torch_measure import (  # noqa: E402
+    card_peaks,
+    cuda_ms,
+    int32_rate,
+    make_batch,
+    nvidia_smi_card,
+    polyphase_bound,
+    polyphase_work,
+    spin_cycles_per_ms,
 )
 
 
@@ -212,84 +225,6 @@ def log(msg: str) -> None:
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-def card_peaks(name: str) -> tuple[float, float, float]:
-    for key, flops, tf32, bw in PEAKS:
-        if key in name:
-            return flops, tf32, bw
-    fail(f"no published peaks for card {name!r}")
-
-
-def _spin_cycles_per_ms() -> float:
-    """Clock cycles per ms of torch.cuda._sleep on this card."""
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    cycles = 20_000_000
-    torch.cuda._sleep(1000)
-    a.record()
-    torch.cuda._sleep(cycles)
-    b.record()
-    b.synchronize()
-    return cycles / a.elapsed_time(b)
-
-
-def int32_rate(name: str) -> float:
-    return card_peaks(name)[0] / 4
-
-
-def cuda_ms(fn, reps: int = 25, warm: int = 3) -> float:
-    """Median over ``reps`` of one call's device time between CUDA events.
-
-    Before each timed call the card spins (torch.cuda._sleep) for longer
-    than the host takes to enqueue the call, so event ``a`` is reached
-    only after the whole call is queued: the interval holds the call's
-    device work, not the host's argument checks, allocation and launch."""
-    host = []
-    for _ in range(warm):
-        t0 = time.perf_counter()
-        fn()
-        host.append(time.perf_counter() - t0)
-        torch.cuda.synchronize()
-    spin_ms = max(1.0, 4e3 * max(host[1:] or host))
-    cycles = int(spin_ms * _spin_cycles_per_ms())
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def make_batch(B: int, seed: int = 11):
-    """B windows with mixed content: most hold 2 signals at varied SNR,
-    every fourth is noise only (the port's copy of bench.py's batch)."""
-    from rtlsdr_wsprd_tpu_torch.runtime.iqio import normalize_minus3db
-    from rtlsdr_wsprd_tpu_torch.runtime.synth import synth_window_at_snr
-
-    calls = ["K1JT FN20 37", "K9AN EN50 33", "G4ABC IO91 30",
-             "VK2XYZ QF56 27"]
-    wi = np.zeros((B, 45000), dtype=np.float32)
-    wq = np.zeros((B, 45000), dtype=np.float32)
-    for b in range(B):
-        if b % 4 == 3:
-            rng = np.random.default_rng(seed + b)
-            z = rng.normal(0, 1.0, (45000, 2)).astype(np.float32)
-            i, q = z[:, 0], z[:, 1]
-        else:
-            msgs = [calls[b % len(calls)], calls[(b + 1) % len(calls)]]
-            i, q = synth_window_at_snr(
-                msgs, snr_db=[3.0 - (b % 3) * 4.0, -8.0],
-                f0=[-60.0 + 13.0 * (b % 9), 45.0 - 11.0 * (b % 7)],
-                t0=[2.0, 1.0], seed=seed + b,
-            )
-        wi[b], wq[b] = normalize_minus3db(i, q)
-    return wi, wq, calls
 
 
 def phase_env():
@@ -306,11 +241,7 @@ def phase_env():
     if (torch.backends.cuda.matmul.allow_tf32
             or torch.backends.cudnn.allow_tf32):
         fail("TF32 is on")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()
-    card = smi[0].strip() if smi else "nvidia-smi gave nothing"
+    card = nvidia_smi_card()
     name = torch.cuda.get_device_name(0)
     log(f"[env] device {name} x{torch.cuda.device_count()}; "
         f"nvidia-smi: {card}; TF32 off")
@@ -371,7 +302,7 @@ def phase_kernel(dev, name, paths, extras: bool = True):
         polyphase_plain,
     )
 
-    peak_flops, peak_tf32, peak_bw = card_peaks(name)
+    card_peaks(name)  # raises for a card without published peaks
     rng = np.random.default_rng(1)
     rows = []
     filters = {"stage1": STAGE1, "stage2": STAGE2, **BANKS}
@@ -401,8 +332,6 @@ def phase_kernel(dev, name, paths, extras: bool = True):
         bank = isinstance(filt, list)
         first = filt[0] if bank else filt
         route = _route("cuda", getattr(torch, dt), filt)
-        # real taps (stage 2) need 2 FMA per tap and frame, complex 4
-        flop_tap = 8 if np.any(first.gi) else 4
         label = (f"{stage} {dt} C={C} x {n} frames, L={L}"
                  f"{', one stream (row stride 0)' if bank else ''}"
                  f"{f', rows at a {offset}-element offset' if offset else ''}"
@@ -454,13 +383,10 @@ def phase_kernel(dev, name, paths, extras: bool = True):
             separate_ms = cuda_ms(lambda: [polyphase_decimate(
                 xI[0], xQ[0], f, n) for f in filt])
         # each input read once: a bank's one stream, else C rows
-        nbytes = (2 * (1 if bank else C) * L * hI.itemsize
-                  + 2 * C * n * 4)
-        flops = flop_tap * first.T * C * n
-        bytes_ms = nbytes / peak_bw * 1e3
-        fp32_core_ms = flops / peak_flops * 1e3
-        # the tensor-core kernel does its work as two TF32 products
-        t_ops = 2 * flops / peak_tf32 * 1e3 if route == "tc" else fp32_core_ms
+        nbytes, flops = polyphase_work(filt, C, L, n, hI.itemsize,
+                                       one_stream=bank)
+        bd = polyphase_bound(nbytes, flops, route, name)
+        bytes_ms, fp32_core_ms = bd["bytes_ms"], bd["fp32_core_ms"]
         row = dict(shape=label, path=path, route=route, stage=stage,
                    dtype=dt, C=C,
                    L=L, frames=n, row_offset=offset, launches=launched,
@@ -468,8 +394,7 @@ def phase_kernel(dev, name, paths, extras: bool = True):
                    separate_launches_ms=separate_ms,
                    library_ms=lib_ms, library_max_abs_err=lib_err,
                    bytes_ms=bytes_ms, fp32_core_ms=fp32_core_ms,
-                   bound_ms=max(bytes_ms, t_ops),
-                   bound_by="bytes" if bytes_ms >= t_ops else "operations",
+                   bound_ms=bd["bound_ms"], bound_by=bd["bound_by"],
                    bytes=nbytes, flop=flops)
         rows.append(row)
         log(f"[kernel] {route} {label}: max|kernel-plain| {err:.3g} (atol "
@@ -806,7 +731,7 @@ def fano_input_rows(dev, name, label, syms, valid, cal, phase: str = "fano"):
     bw = card_peaks(name)[2]
     int_rate = int32_rate(name)
     threads = os.cpu_count() or 1
-    cycles_per_ms = _spin_cycles_per_ms()
+    cycles_per_ms = spin_cycles_per_ms()
     budgets = sorted(set(FANO_BUDGETS) | {cal.device_maxcycles})
     rows = []
     s = torch.from_numpy(syms).to(dev)
@@ -1998,6 +1923,71 @@ def phase_transfer(dev, card, wi, wq, counts, shapes_by_path, DB,
             "differ_in_messages": messages, "seconds": secs}
 
 
+E2E_DC = 128        # channels of the e2e_device phase (the batch's first)
+E2E_NMID = 120_000  # stage-1 frames a fused front-end step (30 a window)
+E2E_DWIN = 2        # timed windows
+
+
+def phase_e2e_device(dev, name, card, wi, wq, calls):
+    """The device-resident ingest -> spots chain (tools/torch_e2e_sweep.py)
+    on the batch's first E2E_DC windows, one counted path: one checked
+    round (its spots equal in every field to decode_channels on a host
+    copy of the same planes at float32, every +3 dB content message
+    found), then measure_e2e_device over E2E_DWIN timed windows. Returns
+    the path's launches, the kernel rows of its polyphase shapes and the
+    summary."""
+    import torch_e2e_sweep as e2e
+
+    from rtlsdr_wsprd_tpu_torch.config import DecoderOptions
+    from rtlsdr_wsprd_tpu_torch.parallel.multichannel import decode_channels
+
+    opts = DecoderOptions()
+    DC = E2E_DC
+    cont_i = torch.from_numpy(wi[:DC]).to(dev)
+    cont_q = torch.from_numpy(wq[:DC]).to(dev)
+    counts: dict[str, dict] = {}
+    shapes_by_path: dict[str, dict] = {}
+    label = "e2e_device"
+    t0 = time.perf_counter()
+    with counted_path(label, counts, shapes_by_path, phase=label):
+        (handle,) = e2e.device_windows(cont_i, cont_q, 1, 0, E2E_NMID, [dev])
+        host = [a.cpu().numpy().copy() for a in handle.arrays]
+        got = _fields(decode_channels(None, None, opts, windows=handle))
+        torch.cuda.synchronize()
+        round_s = time.perf_counter() - t0
+        per_card, secs, steps, n_dev = e2e.measure_e2e_device(
+            wi, wq, opts, DC=DC, DWIN=E2E_DWIN, N_MID=E2E_NMID, device=dev)
+    want = _fields(decode_channels(*host, opts, device_batch=DC,
+                                   transfer_dtype="float32", device=dev))
+    bad = [b for b in range(DC) if got[b] != want[b]]
+    if bad:
+        fail(f"[e2e_device] the chain's spots differ from decode_channels "
+             f"on a host copy of its planes in windows {bad[:10]}: "
+             f"{got[bad[0]]} != {want[bad[0]]}")
+    strong = {b: calls[b % 4] for b in range(DC) if b % 4 != 3 and b % 3 == 0}
+    missed = [b for b, msg in strong.items()
+              if all(x[0] != msg for x in got[b])]
+    if missed:
+        fail(f"[e2e_device] +3 dB content messages not found in windows "
+             f"{missed[:10]}")
+    c = counts[label]
+    if not (c["tc"] and c["direct"] and c["fano"]):
+        fail(f"[e2e_device] a kernel of the chain was not launched: {c}")
+    log(f"[e2e_device] checked round: {DC} windows from {E2E_NMID}-frame "
+        f"steps in {round_s:.2f} s, spots equal in every field to "
+        f"decode_channels on a host copy at float32, {len(strong)} +3 dB "
+        f"messages found, {sum(len(ch) for ch in got)} spots ({card})")
+    log(f"[e2e_device] measure_e2e_device DC={DC} DWIN={E2E_DWIN}: "
+        f"{per_card:.1f} realtime channels per card, {secs / E2E_DWIN:.4f} "
+        f"s a window, {steps} steps a window, {n_dev} card ({card})")
+    rows = phase_kernel(dev, name, shapes_by_path, extras=False)
+    summary = {"realtime_channels_per_card": per_card,
+               "s_per_window": secs / E2E_DWIN, "steps_per_window": steps,
+               "checked_round_s": round_s, "card": card}
+    log(json.dumps({"e2e_device": summary}))
+    return counts, rows, summary
+
+
 # the rank processes of the 2-rank multicli run: multicli.main as a user
 # starts it, its front-end calls noted by shape, then the process's
 # kernel launches and those shapes as one line each
@@ -2299,6 +2289,8 @@ def main() -> None:
     dense_rows, dense_counts, dec["dense_B64"] = phase_dense(
         dev, name, card, wi, wq, calls, dec["host_spots"], cal)
     md_counts, _ = phase_multidevice(dev, card, wi, wq, dec.pop("host_spots"))
+    e2e_counts, e2e_rows, _ = phase_e2e_device(dev, name, card, wi, wq, calls)
+    rows += e2e_rows
     del wi, wq
     daemon_counts, daemon_shapes = phase_daemon(dev, card, chunks, refI,
                                                  refQ)
@@ -2310,7 +2302,8 @@ def main() -> None:
                           **dist_shapes}.items() if s}, extras=False)
     quality_counts = phase_quality(card)
     # every path counted from 0 after the front-end phases, by kernel
-    paths = {**daemon_counts, **chan_counts, **md_counts, **dist_counts}
+    paths = {**daemon_counts, **chan_counts, **md_counts, **e2e_counts,
+             **dist_counts}
     # cuda, cuda:0 and None (describe, the CLIs) name one card: one
     # measurement in the whole run
     log(f"[decode] FEC calibrations measured in this run: {measured}")

@@ -64,6 +64,39 @@ def folded_stage1_taps(offsets_hz: np.ndarray) -> np.ndarray:
     return g[None, :] * np.exp(1j * theta[:, None] * t[None, :])
 
 
+def _stage2_step(m2I: torch.Tensor, m2Q: torch.Tensor):
+    """Stage 2 over every whole output frame of the (K, m) mid-rate
+    carry: (outI, outQ, new m2I, new m2Q), outputs (K, 0) when the carry
+    holds no whole frame."""
+    K = m2I.shape[0]
+    n_out = (m2I.shape[1] - (STAGE2_TAPS - R2)) // R2
+    if n_out <= 0:
+        empty = torch.zeros((K, 0), dtype=torch.float32, device=m2I.device)
+        return empty, empty, m2I, m2Q
+    oi, oq = polyphase_decimate(m2I, m2Q, STAGE2, n_out)
+    return (oi, oq, m2I[:, n_out * R2:].contiguous(),
+            m2Q[:, n_out * R2:].contiguous())
+
+
+def _folded_frontend_step(rawI: torch.Tensor, rawQ: torch.Tensor, bank,
+                          rotC, rotS, phC, phS, m2I, m2Q, n_mid: int):
+    """One device step of the channelizer for K dials: the folded stage
+    1 of every dial in one bank launch over the one raw stream (L =
+    n_mid*R1 + tail1, as K rows of stride 0), the residual rotation
+    e^{j(phi + theta*R1*m)} (rotC/rotS (K, n_mid) tables, phC/phS (K, 1)
+    carried phase), appended to the (K, m) mid carry, then stage 2.
+    Returns (outI, outQ, new m2I, new m2Q), the JAX package's
+    ``_folded_frontend_step``."""
+    K = len(bank)
+    L = rawI.shape[-1]
+    mi, mq = polyphase_decimate(rawI.expand(K, L), rawQ.expand(K, L), bank,
+                                n_mid)
+    c = phC * rotC - phS * rotS
+    s = phC * rotS + phS * rotC
+    return _stage2_step(torch.cat([m2I, mi * c - mq * s], dim=1),
+                        torch.cat([m2Q, mi * s + mq * c], dim=1))
+
+
 class ChannelizingStreamingDecimator:
     """Stateful streaming channelizer: push one raw stream, get K
     375 sps channels.
@@ -185,8 +218,8 @@ class ChannelizingStreamingDecimator:
         """Append the chunk to the host raw carry, then one step over its
         whole work quanta (every whole frame when ``exact``): the folded
         stage 1 of all K dials in one launch, the residual rotation, and
-        one stage-2 launch over the K rows of the device mid carry."""
-        K = self._K
+        one stage-2 launch over the K rows of the device mid carry
+        (``_folded_frontend_step``)."""
         rawI, rawQ = self._normalize_chunk(rawI, rawQ)
         if rawI.size > 0:
             self._bufI = np.concatenate([self._bufI, rawI])
@@ -198,27 +231,18 @@ class ChannelizingStreamingDecimator:
             need = n_mid * R1 + self._tail1
             xI = torch.from_numpy(self._bufI[:need]).to(self.device)
             xQ = torch.from_numpy(self._bufQ[:need]).to(self.device)
-            # the one stream as K rows of stride 0, one filter a row
-            mi, mq = polyphase_decimate(xI.expand(K, need),
-                                        xQ.expand(K, need), self._bank,
-                                        n_mid)
             rotC, rotS = self._rot_tables(n_mid)
             phC, phS = (torch.from_numpy(a).to(self.device)
                         for a in self._phase_cs())
-            c = phC * rotC - phS * rotS
-            s = phC * rotS + phS * rotC
-            self._m2I = torch.cat([self._m2I, mi * c - mq * s], dim=1)
-            self._m2Q = torch.cat([self._m2Q, mi * s + mq * c], dim=1)
+            oi, oq, self._m2I, self._m2Q = _folded_frontend_step(
+                xI, xQ, self._bank, rotC, rotS, phC, phS, self._m2I,
+                self._m2Q, n_mid)
             self._bufI = self._bufI[n_mid * R1:]
             self._bufQ = self._bufQ[n_mid * R1:]
             self._advance_phase(n_mid * R1)
-        n_out = (self._m2I.shape[1] - self._tail2) // R2
-        if n_out <= 0:
-            return (np.zeros((K, 0), np.float32),
-                    np.zeros((K, 0), np.float32))
-        oi, oq = polyphase_decimate(self._m2I, self._m2Q, STAGE2, n_out)
-        self._m2I = self._m2I[:, n_out * R2:].contiguous()
-        self._m2Q = self._m2Q[:, n_out * R2:].contiguous()
+        else:
+            oi, oq, self._m2I, self._m2Q = _stage2_step(self._m2I,
+                                                        self._m2Q)
         return oi.cpu().numpy(), oq.cpu().numpy()
 
     # -- host placement --------------------------------------------------------

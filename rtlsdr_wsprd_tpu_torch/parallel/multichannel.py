@@ -53,7 +53,14 @@ Host ranges are labelled for ``torch.profiler`` (``record_function``):
 ``fec_device`` (one device Fano call of hybrid mode, its upload and
 fetch included), ``fec_host_finish`` (hybrid mode's stragglers),
 ``spots`` and ``subtract``; the dense path adds ``dense_step`` (one
-pass's device step over all shards, fetch included).
+pass's device step over all shards, fetch included). ``_LOG`` also
+emits the JAX package's phase marks at DEBUG, with its text and
+integers (``stage A done``, ``stage B:``, ``stage B fetch done``,
+``fano rounds done``, ``host-finishing``, ``subtracting``,
+``subtraction done``): tools/torch_profile_staged.py times the
+intervals between them. The staged hybrid FEC's ``host-finishing``
+mark has no JAX counterpart (the JAX package logs it on the mesh path
+only); the profiler reads it as a sub-mark.
 
 ``fec="auto"`` resolves through ops/calibrate.py: a measurement of the
 device Fano against the native decoder on the card, ``host`` without a
@@ -376,6 +383,7 @@ def _fano_rounds(gate: np.ndarray, deint: np.ndarray, delta: int,
                 if pend[a] and first_succ.get(g, FANO_BATCH) < a:
                     pend[a] = False
         if pend.any():
+            _LOG.debug("host-finishing %d straggler lanes", int(pend.sum()))
             with record_function("fec_host_finish"):
                 succ, data, cycles = host_finish(
                     syms, succ, data, cycles, pend, delta, full_maxcycles)
@@ -593,6 +601,7 @@ def _finish_stragglers(out: ChannelDecode, options: DecoderOptions,
     pend &= out.sel_valid.reshape(-1)
     if not pend.any():
         return out
+    _LOG.debug("host-finishing %d straggler lanes", int(pend.sum()))
     with record_function("fec_host_finish"):
         succ, data, cyc = host_finish(
             out.deint.reshape(-1, 162), succ, out.data.reshape(-1, 11), cyc,
@@ -799,6 +808,7 @@ def _staged_pass(
                     for c0 in range(0, n_pad, device_batch)]
             sA[:] = _HostCopy([torch.cat(outs)]).get()[0]
     sA = sA[:B]
+    _LOG.debug("stage A done (%d windows)", B)
 
     valid_a = sA[:, 1] != 0.0
     tbl = {
@@ -816,6 +826,7 @@ def _staged_pass(
     G = wa.size
     if G == 0:
         return decoded_by_b, tbl
+    _LOG.debug("stage B: %d lanes over %d active windows", G, len(active))
 
     b_kw = {k: kw[k] for k in (
         "lagstep", "iifac", "quickmode", "symfac", "minsync1", "minsync2",
@@ -862,6 +873,8 @@ def _staged_pass(
         with record_function("stage_b_wait"):
             got = copy.get()
         lane_f32, gate = got[:2]
+        _LOG.debug("stage B fetch done (%d gate-passing attempts)",
+                   int(gate.sum()))
         if hybrid:
             decoded = _fano_rounds(gate[:, :n], got[2][:, :n], options.delta,
                                    kw["maxcycles"], options.maxcycles, dev)
@@ -880,6 +893,7 @@ def _staged_pass(
         tbl["freq"][sel_w, sel_c] = lane_f32[0, :n]
         tbl["shift"][sel_w, sel_c] = lane_f32[1, :n]
         tbl["sync"][sel_w, sel_c] = lane_f32[2, :n]
+        _LOG.debug("fano rounds done (%d decodes)", len(decoded))
         for g, (j, data, cycles) in decoded.items():
             decoded_by_b[int(sel_w[g])][int(sel_c[g])] = (j, data, cycles)
     return decoded_by_b, tbl
@@ -1013,6 +1027,12 @@ def _queue_subtractions(subs: dict, b: int, new_decodes, tbl: dict,
             float(tbl["drift"][row, c]), chan_syms))
 
 
+def _log_subtracting(subs: dict) -> None:
+    _LOG.debug("subtracting %d decodes in %d rounds",
+               sum(len(v) for v in subs.values()),
+               max(len(v) for v in subs.values()))
+
+
 def _subtraction_groups(subs: dict, lane_n: int):
     """``subs`` in ROUNDS, round r holding each channel's r-th decode
     (same-channel decodes stay sequential, wsprd/wsprd.c:781-789), each
@@ -1073,11 +1093,13 @@ def _decode_handle(dw: _DeviceWindows, options: DecoderOptions,
                 _queue_subtractions(subs, b, new_decodes, tbl, b, ht,
                                     sym_cache)
         if subs:
+            _log_subtracting(subs)
             for bidx, f0, sh, dr, syms in _subtraction_groups(
                     subs, max(device_batch, SUBTRACT_LANES)):
                 with record_function("subtract"):
                     dw.subtract(bidx, f0, sh, dr, syms,
                                 np.ones(len(bidx), bool))
+            _LOG.debug("subtraction done")
 
     for b in range(B):
         uniques[b].sort(key=lambda s: -s.snr)
@@ -1160,6 +1182,7 @@ def _decode_mesh(i_windows, q_windows, options: DecoderOptions,
                 _queue_subtractions(subs, b, new_decodes, tbl, row, ht,
                                     sym_cache)
         if subs:
+            _log_subtracting(subs)
             for bidx, f0, sh, dr, syms in _subtraction_groups(
                     subs, SUBTRACT_LANES):
                 with record_function("subtract"):
@@ -1171,6 +1194,7 @@ def _decode_mesh(i_windows, q_windows, options: DecoderOptions,
                         torch.ones(len(bidx), dtype=torch.bool,
                                    device=dev0))
                     cur_i[bidx], cur_q[bidx] = _HostCopy((ni, nq)).get()
+            _LOG.debug("subtraction done")
             shards = sharding.place(cur_i), sharding.place(cur_q)
 
     for b in range(B):

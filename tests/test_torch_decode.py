@@ -33,9 +33,12 @@ from torch_parity import jax_host_fec  # noqa: F401  (fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 QUICK = dict(quickmode=True)
-# the port's decode-quality studies, beside the JAX package's tools
+# the port's tools (the decode-quality studies, the measurement tools
+# and their shared helpers), beside the JAX package's tools
 TOOLS = ("torch_snr_sweep", "torch_sensitivity_matrix", "torch_crowded_band",
-         "torch_hash_census")
+         "torch_hash_census", "torch_e2e_sweep", "torch_profile_staged",
+         "torch_profile_stages", "torch_roofline", "torch_fec_scaling",
+         "torch_host_frontend_bench", "torch_measure")
 
 
 @pytest.fixture(scope="module")
@@ -366,7 +369,7 @@ def test_entry_points_default_to_cuda():
 
 def test_import_leaves_jax_out():
     """In a fresh interpreter, importing every module of the port (and
-    chip_smoke.py and the port's tools/torch_*.py studies) loads neither
+    chip_smoke.py and the port's tools/torch_*.py) loads neither
     jax nor the JAX package; the walk
     reaches the FEC modules (ops.fano, ops.fano_hybrid, ops.calibrate),
     the runtime layer, both CLIs, the channelizer, the multi-host
@@ -400,7 +403,7 @@ def test_import_leaves_jax_out():
 
 def test_sources_import_no_jax():
     """No import statement of the port, of chip_smoke.py or of the
-    port's tools/torch_*.py studies names jax or the JAX package (an AST
+    port's tools/torch_*.py names jax or the JAX package (an AST
     scan, so lazy imports count too)."""
     files = sorted((REPO / "rtlsdr_wsprd_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")

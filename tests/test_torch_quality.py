@@ -4,10 +4,6 @@ against the JAX package's tools, on the CPU: each builder gives the JAX
 tool's windows bit for bit from the same seeds, and each decode function
 gives what the JAX package's decode gives on the same windows."""
 
-import importlib
-import sys
-from pathlib import Path
-
 import numpy as np
 import pytest
 
@@ -18,26 +14,13 @@ from rtlsdr_wsprd_tpu.runtime.synth import synth_window_at_snr
 from rtlsdr_wsprd_tpu.utils.hashtable import WsprHashTable as JHashTable
 from rtlsdr_wsprd_tpu_torch.utils.hashtable import WsprHashTable
 
-from torch_parity import CPU
+from torch_parity import CPU, import_tools
 from torch_parity import jax_host_fec  # noqa: F401  (fixture)
 from torch_parity import port_calibration  # noqa: F401  (fixture)
 
 
-
-def _import_tools(*names):
-    """The tools/ modules ``names``, imported with sys.path restored
-    afterwards: the tools put their own directories on it, and other
-    test files run later in the same process."""
-    saved = list(sys.path)
-    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
-    try:
-        return [importlib.import_module(n) for n in names]
-    finally:
-        sys.path[:] = saved
-
-
 (jcrowded, jcensus, jmatrix, jsweep,
- pcrowded, pcensus, pmatrix, psweep) = _import_tools(
+ pcrowded, pcensus, pmatrix, psweep) = import_tools(
     "crowded_band", "hash_census", "sensitivity_matrix", "snr_sweep",
     "torch_crowded_band", "torch_hash_census", "torch_sensitivity_matrix",
     "torch_snr_sweep")

@@ -7,6 +7,8 @@ port with ``device="cpu"`` (its plain versions).
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -14,6 +16,27 @@ from rtlsdr_wsprd_tpu.runtime.iqio import normalize_minus3db
 from rtlsdr_wsprd_tpu.runtime.synth import synth_window_at_snr
 
 CPU = "cpu"
+REPO = Path(__file__).resolve().parent.parent
+
+
+def import_tools(*names, argv=None):
+    """The tools/ modules ``names``, imported with sys.path (and, with
+    ``argv``, sys.argv) restored afterwards: the tools put their own
+    directories on the path, other test files run later in the same
+    process, and tools/profile_staged.py reads sys.argv when it is
+    imported."""
+    import importlib
+    import sys
+
+    saved_path, saved_argv = list(sys.path), list(sys.argv)
+    sys.path[:0] = [str(REPO / "tools"), str(REPO)]
+    if argv is not None:
+        sys.argv[:] = argv
+    try:
+        return [importlib.import_module(n) for n in names]
+    finally:
+        sys.path[:] = saved_path
+        sys.argv[:] = saved_argv
 
 
 def windows3():

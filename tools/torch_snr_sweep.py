@@ -26,7 +26,6 @@ import argparse
 import collections
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -36,12 +35,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from rtlsdr_wsprd_tpu_torch.config import DecoderOptions  # noqa: E402
-from rtlsdr_wsprd_tpu_torch.device import resolve_device  # noqa: E402
 from rtlsdr_wsprd_tpu_torch.parallel.multichannel import (  # noqa: E402
     decode_channels,
 )
 from rtlsdr_wsprd_tpu_torch.runtime.iqio import normalize_minus3db  # noqa: E402
 from rtlsdr_wsprd_tpu_torch.runtime.synth import synth_window_at_snr  # noqa: E402
+from torch_measure import device_banner  # noqa: E402
 
 SNRS = [0, -15, -20, -24, -26, -28, -29, -30, -31]
 MSG = "K1JT FN20 37"
@@ -53,19 +52,6 @@ SLICE = 128  # windows a decode call: bounds what is on the device
 # holds its paths to this table too); the integer fields must be equal
 FIELD_TOL = (("snr", 0.01), ("dt", 1 / 375), ("freq", 1e-7),
              ("sync", 1e-4), ("drift", 0), ("cycles", 0), ("jitter", 0))
-
-
-def device_banner(device) -> str:
-    """The device a study ran on: for the card, its name and power limit
-    as nvidia-smi gives them, beside which every time is stated."""
-    dev = resolve_device(device)
-    if dev.type != "cuda":
-        return f"{dev} (plain PyTorch versions; no device time)"
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()
-    return f"{dev}: {smi[0].strip() if smi else 'nvidia-smi gave nothing'}"
 
 
 def point_windows(rng: np.random.Generator, snr: float, trials: int):
