@@ -133,6 +133,20 @@ Phases, in order; any failure exits non-zero before the last line:
             and steps a window); all three kernels launched; each
             polyphase kernel against the plain version at the chain's
             shapes.
+   entry    entry() (rtlsdr_wsprd_tpu_torch/entry.py, the counterpart
+            of __graft_entry__.py) on the card, one counted path: its
+            forward on its two example windows, every ChannelDecode field
+            of the JAX contract's shape, both windows decoding K1JT FN20
+            37 and nothing else, the Fano kernel launched.
+   bench    tools/torch_bench.py's bench() (bench.py's sections) on the
+            512 windows with 3 headline runs, one counted path: every
+            key of bench.py's JSON line and card present, spots_per_batch
+            equal to the host decode's spot count on those windows, the
+            headline finite and above 0, 129 float32 stage-1 calls at
+            C=128 x 9,375 frames, every noted front-end call on its
+            kernel (those on polyphase.cu), the Fano kernel launched; then
+            each polyphase kernel against the plain version at every
+            shape of the path that no earlier phase checked.
 9. channelize
             ChannelizingStreamingDecimator at offset 0 against
             BatchedStreamingDecimator(1) on the capture (within 1e-5 of
@@ -162,6 +176,13 @@ Phases, in order; any failure exits non-zero before the last line:
             its K rows, beside the time of K one-filter launches), and
             every one-filter shape against a bank of C copies of its
             filter, bit for bit.
+   scaling  tools/torch_scaling.py on the card, one counted path (the
+            processes' own launches added): the mesh mode in this process
+            (the dense step on 8 windows unsharded and over 8 shards of
+            cuda:0, equal in every ChannelDecode field, every window
+            decoded, the Fano kernel launched) and the dist mode (one
+            process on the 8 windows, one on 4, two gloo ranks on 4 each,
+            every window spotted in each).
 11. quality the port's decode-quality studies (tools/torch_*.py) at
             reduced sizes on the card, through their own builders and
             decode functions with device=None, every Fano launch counted
@@ -192,6 +213,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1988,6 +2010,116 @@ def phase_e2e_device(dev, name, card, wi, wq, calls):
     return counts, rows, summary
 
 
+def _routes_match(launches: dict, shapes: dict) -> bool:
+    """Every noted front-end call launched its kernel: uint8 stage 1 on
+    polyphase_tc, float32 stage 1 and stage 2 on polyphase.cu."""
+    tc = sum(k for key, k in shapes.items()
+             if key[0].startswith("stage1") and key[1] == "uint8")
+    return (launches["tc"] == tc
+            and launches["direct"] == sum(shapes.values()) - tc)
+
+
+def phase_entry(dev, card):
+    """entry() (rtlsdr_wsprd_tpu_torch/entry.py), one counted path: its
+    forward on its example arguments; every ChannelDecode field of the
+    JAX contract's shape, both windows decoding K1JT FN20 37 and no
+    other message. Returns the path's launches."""
+    from rtlsdr_wsprd_tpu_torch.config import MAX_CANDIDATES
+    from rtlsdr_wsprd_tpu_torch.entry import B_EXAMPLE, MAX_ATTEMPTS, entry
+    from rtlsdr_wsprd_tpu_torch.utils.codec import unpack_message
+    from rtlsdr_wsprd_tpu_torch.utils.hashtable import WsprHashTable
+
+    counts: dict[str, dict] = {}
+    t0 = time.perf_counter()
+    with counted_path("entry", counts, {}, phase="entry"):
+        fn, args = entry()
+        out = fn(*args)
+    secs = time.perf_counter() - t0
+    B, C, K = B_EXAMPLE, MAX_CANDIDATES, MAX_ATTEMPTS
+    want = dict(snr=(B, C), valid=(B, C), freq=(B, C), shift=(B, C),
+                sync=(B, C), drift=(B, C), sel_cand=(B, K), sel_jit=(B, K),
+                sel_valid=(B, K), success=(B, K), data=(B, K, 11),
+                cycles=(B, K), deint=(B, K, 162), n_gate=(B,))
+    got = {k: tuple(v.shape) for k, v in out._asdict().items()}
+    if got != want or any(a.device != dev for a in (*args, *out)):
+        fail(f"[entry] forward output {got} on "
+             f"{sorted({str(v.device) for v in out})}, want {want} on {dev}")
+    ht = WsprHashTable()
+    msgs = []
+    for data, ok in zip(out.data.cpu().numpy(), out.success.cpu().numpy()):
+        decoded = [unpack_message(bytes(d), ht) for d in data[ok]]
+        msgs.append(sorted({m.call_loc_pow if m else "(no message)"
+                            for m in decoded}))
+    if msgs != [["K1JT FN20 37"]] * B:
+        fail(f"[entry] the example windows decoded {msgs}")
+    if not counts["entry"]["fano"]:
+        fail(f"[entry] the Fano kernel was not launched: {counts['entry']}")
+    log(f"[entry] entry() forward on {dev}: {B} windows, {K} attempts a "
+        f"window, {int(out.success.sum())} successful attempts, each "
+        f"window K1JT FN20 37, {secs:.2f} s with the example batch "
+        f"({card})")
+    return counts
+
+
+def _bench_py_keys() -> set[str]:
+    """The keys of bench.py's JSON line, read from its source (no import:
+    bench.py belongs to the JAX package's side)."""
+    import ast
+
+    with open(os.path.join(HERE, "bench.py")) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and getattr(node.func, "attr", "")
+                == "dumps" and node.args
+                and isinstance(node.args[0], ast.Dict)):
+            return {k.value for k in node.args[0].keys}
+    fail("bench.py has no json.dumps({...}) line")
+
+
+def phase_bench(dev, name, card, wi, wq, host_spots: int, rows: list):
+    """tools/torch_bench.py's bench() on the decode phase's batch, 3
+    headline runs, one counted path; then each polyphase kernel against
+    the plain version at every shape of the path that ``rows`` (the
+    kernel rows so far) lacks. Returns the path's launches and the new
+    kernel rows."""
+    import torch_bench
+
+    from rtlsdr_wsprd_tpu_torch.frontend.filters import R1, STAGE1_TAPS
+
+    counts: dict[str, dict] = {}
+    shapes_by_path: dict[str, dict] = {}
+    t0 = time.perf_counter()
+    with counted_path("bench", counts, shapes_by_path, phase="bench"):
+        line = torch_bench.bench(dev, runs=3, batch=(wi, wq))
+    secs = time.perf_counter() - t0
+    log(f"[bench] {secs:.1f} s: {json.dumps(line)}")
+    keys = _bench_py_keys() | {"card"}
+    if set(line) != keys:
+        fail(f"[bench] keys {sorted(set(line) ^ keys)} differ from "
+             "bench.py's line and card")
+    if line["spots_per_batch"] != host_spots:
+        fail(f"[bench] spots_per_batch {line['spots_per_batch']} != the host "
+             f"decode's {host_spots} on the same windows")
+    if not (math.isfinite(line["value"]) and line["value"] > 0):
+        fail(f"[bench] headline {line['value']}")
+    shapes = shapes_by_path["bench"]
+    n = torch_bench.FE_FRAMES
+    fe_key = ("stage1", "float32", 128, n * R1 + STAGE1_TAPS - R1, n)
+    c = counts["bench"]
+    if (shapes.get(fe_key) != torch_bench.FE_ITERS + 1
+            or not _routes_match(c, shapes) or not c["fano"]):
+        fail(f"[bench] launches {c} against the front-end calls {shapes}: "
+             f"want {torch_bench.FE_ITERS + 1} float32 stage-1 calls "
+             f"{fe_key} on polyphase.cu, every call on its kernel, the "
+             "Fano kernel launched")
+    seen = {(r["stage"], r["dtype"], r["C"], r["L"], r["frames"])
+            for r in rows}
+    new = {k: v for k, v in shapes.items() if k not in seen}
+    log(f"[bench] launches {c}; float32 stage 1 C=128 x {n} frames: "
+        f"{shapes.get(fe_key)} calls on polyphase.cu ({card})")
+    return counts, phase_kernel(dev, name, {"bench": new}, extras=False)
+
+
 # the rank processes of the 2-rank multicli run: multicli.main as a user
 # starts it, its front-end calls noted by shape, then the process's
 # kernel launches and those shapes as one line each
@@ -2109,6 +2241,35 @@ def phase_distributed(card, chunks):
     summary["multicli_2_ranks_wall_s"] = round(wall, 3)
     log(json.dumps({"distributed": summary}))
     return counts, shapes_by_path
+
+
+def phase_scaling(dev, card):
+    """tools/torch_scaling.py's mesh mode in this process and its dist
+    mode (4 processes on the card), one counted path: the processes'
+    own launches added to this one's. Returns the path's launches."""
+    import torch_scaling
+
+    counts: dict[str, dict] = {}
+    t0 = time.perf_counter()
+    with counted_path("scaling", counts, {}, phase="scaling"):
+        mesh = torch_scaling.mesh_mode(dev)
+    t_mesh = time.perf_counter() - t0
+    if not counts["scaling"]["fano"]:
+        fail(f"[scaling] the mesh mode's dense steps launched no Fano "
+             f"kernel: {counts['scaling']}")
+    log(f"[scaling] mesh, {t_mesh:.1f} s: sharded output equal to the "
+        f"unsharded one in every ChannelDecode field, every window decoded;"
+        f" {json.dumps(mesh)} ({card})")
+    t0 = time.perf_counter()
+    out, procs = torch_scaling.dist_mode(dev, timeout_s=400)
+    for proc in procs:
+        for k, v in proc["launches"].items():
+            counts["scaling"][k] += v
+    log(f"[scaling] dist, {time.perf_counter() - t0:.1f} s (4 process "
+        f"starts): every window spotted in every process; launches and "
+        f"runs a timed sample by process {procs}; {json.dumps(out)} "
+        f"({card})")
+    return counts
 
 
 # (SNR dB, trials, least found at every format): above the floor the
@@ -2288,22 +2449,29 @@ def main() -> None:
     dec = phase_decode(dev, card, wi, wq, calls, cal)
     dense_rows, dense_counts, dec["dense_B64"] = phase_dense(
         dev, name, card, wi, wq, calls, dec["host_spots"], cal)
+    host_spot_count = sum(len(ch) for ch in dec["host_spots"])
     md_counts, _ = phase_multidevice(dev, card, wi, wq, dec.pop("host_spots"))
     e2e_counts, e2e_rows, _ = phase_e2e_device(dev, name, card, wi, wq, calls)
     rows += e2e_rows
+    entry_counts = phase_entry(dev, card)
+    bench_counts, bench_rows = phase_bench(
+        dev, name, card, wi, wq, host_spot_count, rows)
+    rows += bench_rows
     del wi, wq
     daemon_counts, daemon_shapes = phase_daemon(dev, card, chunks, refI,
                                                  refQ)
     chan_counts, chan_shapes = phase_channelize(dev, card, chunks)
     dist_counts, dist_shapes = phase_distributed(card, chunks)
     del chunks
+    scaling_counts = phase_scaling(dev, card)
     rows += phase_kernel(dev, name, {
         p: s for p, s in {**daemon_shapes, **chan_shapes,
                           **dist_shapes}.items() if s}, extras=False)
     quality_counts = phase_quality(card)
     # every path counted from 0 after the front-end phases, by kernel
     paths = {**daemon_counts, **chan_counts, **md_counts, **e2e_counts,
-             **dist_counts}
+             **dist_counts, **entry_counts, **bench_counts,
+             **scaling_counts}
     # cuda, cuda:0 and None (describe, the CLIs) name one card: one
     # measurement in the whole run
     log(f"[decode] FEC calibrations measured in this run: {measured}")

@@ -38,7 +38,8 @@ QUICK = dict(quickmode=True)
 TOOLS = ("torch_snr_sweep", "torch_sensitivity_matrix", "torch_crowded_band",
          "torch_hash_census", "torch_e2e_sweep", "torch_profile_staged",
          "torch_profile_stages", "torch_roofline", "torch_fec_scaling",
-         "torch_host_frontend_bench", "torch_measure")
+         "torch_host_frontend_bench", "torch_measure", "torch_bench",
+         "torch_scaling")
 
 
 @pytest.fixture(scope="module")
