@@ -5,11 +5,12 @@
 Phases, in order; any failure exits non-zero before the last line:
 
 1. env      torch/CUDA versions, the card's name and power limit, TF32 off.
-2. build    the three CUDA kernels (nvcc: polyphase_tc.cu, the
+2. build    the five CUDA kernels (nvcc: polyphase_tc.cu, the
             tensor-core stage-1 kernel for uint8 input, polyphase.cu, the
-            FP32-core kernel for float32 input, and fano.cu, the batched
-            Fano decoder) and the host Fano library (g++), built at the
-            same time from this checkout.
+            FP32-core kernel for float32 input, fano.cu, the batched
+            Fano decoder, coarse.cu, stage A's coarse grid search, and
+            correlator.cu, stage B's tone correlator) and the host Fano
+            library (g++), built at the same time from this checkout.
 3. frontend the main path: a 120 s synthetic raw 2.4 Msps uint8 capture
             streamed in 10 s chunks through BatchedStreamingDecimator (8
             lanes, each fed the same capture), lane 0's window decoded by
@@ -62,7 +63,35 @@ Phases, in order; any failure exits non-zero before the last line:
             explicitly) over 4 batches of those windows, each equal to
             the host result, with windows/s; then one run in the mode
             fec="auto" picks under torch.profiler (host time per
-            labelled range, the card's kernel time and busy share).
+            labelled range, the card's kernel time and busy share). The
+            coarse and correlator kernels' launches are set to 0 just
+            before the host runs and again before the hybrid runs, read
+            just after each, and added.
+   search   stage A's coarse grid (coarse.cu) against its plain version
+            on power spectrograms in the decode's own layout, at the
+            batch sizes the paths launch it with: the staged decode's
+            128 windows at maxdrift 4, 0 and a (B,) tensor 0..4; a
+            dense-step chunk of 4 windows, the last one zero-padded
+            with maxdrift 0 as the dense step pads it; decode_window's
+            one window at maxdrift 4. Each row's value
+            within rtol 1e-5 (atol 1e-6), its (lag, drift) index equal
+            wherever the plain row's best and second best differ by
+            more than that (the near-ties counted), and the
+            candidates' (freq, shift, drift) equal wherever no near-tie
+            decides them; stage B's tone correlator (correlator.cu)
+            against its plain version on 128 staged lanes of the batch
+            at L = 33, 17, 43 and 1 offsets and on the dense step's
+            chunk (4 windows x 200 slots = 800 lanes) at L = 33 and 43,
+            within rtol 2e-4, atol 2e-3. Each with the kernel's time,
+            the plain version's, the plain route's cuBLAS products
+            alone, and the card's bound for the same work
+            (tools/torch_measure.py coarse_work, correlator_work). Then
+            decode_channels on the first 128 windows (fec="host")
+            through the kernels and with coarse_rows and
+            _tone_mags_offsets swapped for their plain versions: the
+            same messages in every window, freq, snr and dt within the
+            dense-vs-staged tolerances, the spots whose cycles, sync or
+            jitter moved printed.
    dense    the dense program on the batch's first 64 windows:
             multichannel_decode_device once (device time between CUDA
             events, peak memory, one Fano launch over 64 x 128 attempt
@@ -203,8 +232,10 @@ Phases, in order; any failure exits non-zero before the last line:
             prepare_windows(device=None), make_mesh(["cuda"]) and
             MultiChannelDaemon(device=None) must name cuda:0.
 
-Then a JSON line per kernel, the card's name and power limit, and the
-last line ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits
+Every path that launched the Fano kernel must have launched the coarse
+and correlator kernels too. Then a JSON line per kernel, the card's
+name and power limit, and the last line ``{"ok": true, "device":
+{...}}``. Needs one CUDA card; exits
 non-zero without one. Imports nothing of JAX.
 """
 
@@ -230,6 +261,8 @@ import torch  # noqa: E402
 
 from torch_measure import (  # noqa: E402
     card_peaks,
+    coarse_work,
+    correlator_work,
     cuda_ms,
     int32_rate,
     make_batch,
@@ -273,7 +306,7 @@ def phase_env():
 def phase_build():
     from rtlsdr_wsprd_tpu_torch import native
     from rtlsdr_wsprd_tpu_torch.frontend import polyphase
-    from rtlsdr_wsprd_tpu_torch.ops import fano
+    from rtlsdr_wsprd_tpu_torch.ops import coarse, fano, sync
 
     took: dict[str, float] = {}
     errors: list[Exception] = []
@@ -282,7 +315,7 @@ def phase_build():
         t0 = time.perf_counter()
         try:
             fn()
-        except Exception as e:  # reported after both builds end
+        except Exception as e:  # reported after every build ends
             errors.append(e)
         took[label] = time.perf_counter() - t0
 
@@ -290,6 +323,8 @@ def phase_build():
         ("polyphase_tc.cu (nvcc)", lambda: polyphase.build_kernel("tc")),
         ("polyphase.cu (nvcc)", lambda: polyphase.build_kernel("direct")),
         ("fano.cu (nvcc)", fano.build_kernel),
+        ("coarse.cu (nvcc)", coarse.build_kernel),
+        ("correlator.cu (nvcc)", sync.build_kernel),
         ("hostdsp.cpp (g++)", native.build))]
     for t in threads:
         t.start()
@@ -445,6 +480,20 @@ def _stage_of(filt) -> str:
     return "stage1" if filt is decimate.STAGE1 else "stage2"
 
 
+def reset_launches() -> None:
+    """Every kernel's launch count to 0 (parallel/dryrun.py
+    launch_counts reads them)."""
+    from rtlsdr_wsprd_tpu_torch.frontend.polyphase import polyphase_decimate
+    from rtlsdr_wsprd_tpu_torch.ops import coarse, sync
+    from rtlsdr_wsprd_tpu_torch.ops.fano import batched_fano
+
+    for route in polyphase_decimate.launches:
+        polyphase_decimate.launches[route] = 0
+    batched_fano.launches = 0
+    coarse.coarse_search.launches = 0
+    sync._tone_mags_offsets.launches = 0
+
+
 @contextlib.contextmanager
 def noted_calls():
     """Set every kernel's launch count to 0 and note the (stage, input
@@ -465,8 +514,7 @@ def noted_calls():
 
     decimate.polyphase_decimate = noting
     channelize.polyphase_decimate = noting
-    for route in polyphase_decimate.launches:
-        polyphase_decimate.launches[route] = 0
+    reset_launches()
     try:
         yield shapes
     finally:
@@ -849,6 +897,7 @@ def phase_decode(dev, card, wi, wq, calls, cal, DB: int = 128):
     from rtlsdr_wsprd_tpu_torch.config import DecoderOptions
     from rtlsdr_wsprd_tpu_torch.ops import calibrate
     from rtlsdr_wsprd_tpu_torch.ops.fano import batched_fano
+    from rtlsdr_wsprd_tpu_torch.parallel.dryrun import launch_counts
     from rtlsdr_wsprd_tpu_torch.parallel.multichannel import (
         decode_channels,
         decode_channels_pipelined,
@@ -895,10 +944,19 @@ def phase_decode(dev, card, wi, wq, calls, cal, DB: int = 128):
             f"{sum(len(ch) for ch in spots[:32])})")
         return spots, B / med
 
+    # each run's counts are set to 0 just before it and read just after
+    reset_launches()
     host, host_rate = timed("host")
-    batched_fano.launches = 0
+    host_counts = launch_counts()
+    reset_launches()
     hybrid, hybrid_rate = timed("hybrid")
-    launches = batched_fano.launches
+    hybrid_counts = launch_counts()
+    launches = hybrid_counts["fano"]
+    searched = {k: host_counts[k] + hybrid_counts[k]
+                for k in ("coarse", "correlator")}
+    log(f"[decode] search kernel launches: host runs {host_counts['coarse']}"
+        f" coarse / {host_counts['correlator']} correlator, hybrid runs "
+        f"{hybrid_counts['coarse']} / {hybrid_counts['correlator']}")
     if not launches:
         fail("the hybrid decode launched the Fano kernel no time")
     if _fields(hybrid) != _fields(host):
@@ -924,7 +982,286 @@ def phase_decode(dev, card, wi, wq, calls, cal, DB: int = 128):
         f"decode windows/s ({card}); every batch equals the host decode")
     phase_profile(lambda: run("auto"), card)
     return dict(host=host_rate, hybrid=hybrid_rate, pipelined=pipe_rate,
-                hybrid_launches=launches, host_spots=host)
+                hybrid_launches=launches, host_spots=host,
+                search_launches=searched)
+
+
+# ---- stage A's coarse grid and stage B's tone correlator --------------------
+
+SEARCH_BATCH = 128   # the staged decode's device_batch: stage A's windows
+SEARCH_LANES = 128   # stage-B lanes the correlator is checked at
+# row values: float32 sums of 648 terms in another order (rtol), and a
+# floor for values near 0, where the sums cancel (atol)
+COARSE_RTOL, COARSE_ATOL = 1e-5, 1e-6
+# the JAX package's tolerance for its correlator against the direct form
+CORR_RTOL, CORR_ATOL = 2e-4, 2e-3
+SEARCH_DECODE_N = 128  # windows decoded through the kernels and the plain
+
+
+def _offset_sets() -> dict:
+    """L -> (what launches it, the absolute offsets): fine sync at
+    lagstep 8 and 16, the 43-jitter schedule, quickmode's one jitter."""
+    from rtlsdr_wsprd_tpu_torch.ops import sync
+
+    def absolute(rel):
+        return tuple(int(r) + sync.HALF_SPAN for r in rel)
+
+    return {33: ("fine sync, lagstep 8", absolute(sync._rel_lags(8))),
+            17: ("fine sync, lagstep 16 (quickmode)",
+                 absolute(sync._rel_lags(16))),
+            43: ("soft symbols, 43 jitters",
+                 absolute(sync.jitter_offsets(3, False))),
+            1: ("soft symbols, quickmode", absolute(sync.jitter_offsets(3,
+                                                                        True)))}
+
+
+def _coarse_case(dev, name, ps, bins, md, label):
+    """coarse_rows on the card against the plain version on ps: row
+    values, indices outside near-ties, the candidates' (freq, shift,
+    drift); times and bound. Returns the row."""
+    from rtlsdr_wsprd_tpu_torch.ops import coarse
+
+    B = ps.shape[0]
+    before = coarse.coarse_search.launches
+    val, arg = coarse.coarse_rows(ps, md)
+    if coarse.coarse_search.launches != before + 1:
+        fail(f"coarse {label}: the call did not launch the kernel")
+    pval, parg = coarse._row_max_plain(ps, md)
+    top2 = torch.topk(coarse._sync_grid_plain(ps, md), 2, dim=-1).values
+    torch.cuda.synchronize()
+    tol = COARSE_RTOL * pval.abs() + COARSE_ATOL
+    err = (val - pval).abs()
+    if not bool((err <= tol).all()):
+        k = int(torch.argmax(err - tol))
+        fail(f"coarse {label}: row value {float(val.flatten()[k])} vs plain "
+             f"{float(pval.flatten()[k])} beyond rtol {COARSE_RTOL}, atol "
+             f"{COARSE_ATOL}")
+    gap = top2[..., 0] - top2[..., 1]
+    # a row of zero power ties exactly: there the first index must win
+    near = (gap <= tol) & ~((gap == 0) & (top2[..., 0] == 0))
+    bad = (arg.long() != parg) & ~near
+    if bool(bad.any()):
+        b, r = (int(x) for x in torch.nonzero(bad)[0])
+        fail(f"coarse {label}: window {b} row {r}: index {int(arg[b, r])} vs "
+             f"plain {int(parg[b, r])} with a gap of {float(gap[b, r])}")
+    # candidates: equal wherever none of their 3 rows is a near-tie and
+    # their best row is not within the tolerance of another
+    got = coarse._pick_candidates(val, arg, bins)
+    want = coarse._pick_candidates(pval, parg, bins)
+    rows3 = torch.clamp(bins.long()[..., None] + 51
+                        + torch.arange(-1, 2, device=dev), 0, 511)
+    flat = rows3.reshape(B, -1)
+    v3 = torch.gather(pval, 1, flat).reshape(rows3.shape)
+    t3 = torch.gather(tol, 1, flat).reshape(rows3.shape)
+    top_v3 = torch.topk(v3, 2, dim=-1).values
+    unsure = (torch.gather(near, 1, flat).reshape(rows3.shape).any(-1)
+              | ((top_v3[..., 0] - top_v3[..., 1] <= t3.max(-1).values)
+                 & (top_v3[..., 0] != top_v3[..., 1])))
+    diff = ((got.freq != want.freq) | (got.shift != want.shift)
+            | (got.drift != want.drift)) & ~unsure
+    if bool(diff.any()):
+        b, c = (int(x) for x in torch.nonzero(diff)[0])
+        fail(f"coarse {label}: window {b} candidate {c}: (freq, shift, "
+             f"drift) ({float(got.freq[b, c])}, {int(got.shift[b, c])}, "
+             f"{float(got.drift[b, c])}) vs plain ({float(want.freq[b, c])}"
+             f", {int(want.shift[b, c])}, {float(want.drift[b, c])})")
+    n_cand_diff = int(((got.freq != want.freq) | (got.shift != want.shift)
+                       | (got.drift != want.drift)).sum())
+
+    ms = cuda_ms(lambda: coarse.coarse_rows(ps, md))
+    plain_ms = cuda_ms(lambda: coarse._row_max_plain(ps, md))
+    # the plain route's one cuBLAS product, on its gathered lag planes
+    G = torch.nn.functional.pad(torch.sqrt(ps), (coarse._PAD_L, 65))[
+        :, :, torch.from_numpy(coarse._COLS).to(dev)].reshape(-1, 162)
+    w = torch.from_numpy(coarse.W).to(dev)
+    lib_ms = cuda_ms(lambda: G @ w)
+    del G
+    md_host = md.cpu().numpy() if torch.is_tensor(md) else md
+    nbytes, flops = coarse_work(B, md_host)
+    bd = polyphase_bound(nbytes, flops, "cuda", name)
+    row = dict(shape=f"B={B}, {label}", B=B, max_abs_err=float(err.max()),
+               max_rel_err=float((err / pval.abs().clamp(min=1e-30)).max()),
+               rtol=COARSE_RTOL, atol=COARSE_ATOL,
+               near_tie_rows=int(near.sum()),
+               candidates_not_compared=int(unsure.sum()),
+               candidates_differing=n_cand_diff, ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=bd["bound_ms"],
+               bound_by=bd["bound_by"], bytes_ms=bd["bytes_ms"],
+               fp32_core_ms=bd["fp32_core_ms"], bytes=nbytes, flop=flops)
+    log(f"[search] coarse B={B} {label}: max|kernel-plain| {row['max_abs_err']:.3g}"
+        f" (rtol {COARSE_RTOL}, atol {COARSE_ATOL}), {row['near_tie_rows']} "
+        f"near-tie rows of {B * 512}, {row['candidates_not_compared']} "
+        f"candidates on near-ties ({n_cand_diff} differ); kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, its SGEMM {lib_ms:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
+
+
+def _correlator_case(dev, name, wr, wi, freq, drift, L, label):
+    """The correlator on the card against the plain version at G lanes
+    and L offsets; times and bound. Returns the row."""
+    from rtlsdr_wsprd_tpu_torch.ops import sync
+
+    G = wr.shape[0]
+    what, offs = _offset_sets()[L]
+    before = sync._tone_mags_offsets.launches
+    got = sync._tone_mags_offsets(wr, wi, freq, drift, offs)
+    if sync._tone_mags_offsets.launches != before + 1:
+        fail(f"correlator {label}: the call did not launch the kernel")
+    want = sync._tone_mags_offsets_plain(wr, wi, freq, drift, offs)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    if not bool((err <= CORR_RTOL * want.abs() + CORR_ATOL).all()):
+        fail(f"correlator {label} L={L}: max |kernel-plain| "
+             f"{float(err.max())} beyond rtol {CORR_RTOL}, atol {CORR_ATOL}")
+    ms = cuda_ms(lambda: sync._tone_mags_offsets(wr, wi, freq, drift, offs))
+    plain_ms = cuda_ms(lambda: sync._tone_mags_offsets_plain(
+        wr, wi, freq, drift, offs))
+    # the plain route's cuBLAS products (and |z|), on its derotated frames
+    ecr, eci = sync._cand_phasor_conj(freq, drift, ulen=sync.ULEN)
+    yr, yi = sync._derotate(sync._double_frames(wr), sync._double_frames(wi),
+                            ecr, eci)
+    tr, ti = (torch.from_numpy(t).to(dev)
+              for t in sync._offset_tone_matrix(offs))
+    lib_ms = cuda_ms(lambda: sync._tone_mags(yr, yi, tr, ti))
+    del ecr, eci, yr, yi
+    nbytes, flops = correlator_work(G, L)
+    bd = polyphase_bound(nbytes, flops, "cuda", name)
+    row = dict(shape=f"{G} lanes ({label}), L={L}: {what}", G=G, L=L,
+               max_abs_err=float(err.max()), rtol=CORR_RTOL, atol=CORR_ATOL,
+               ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=bd["bound_ms"], bound_by=bd["bound_by"],
+               bytes_ms=bd["bytes_ms"], fp32_core_ms=bd["fp32_core_ms"],
+               bytes=nbytes, flop=flops)
+    log(f"[search] correlator {G} lanes ({label}) L={L} ({what}): "
+        f"max|kernel-plain| {row['max_abs_err']:.3g} (rtol {CORR_RTOL}, "
+        f"atol {CORR_ATOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"its SGEMMs {lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})")
+    return row
+
+
+def phase_search(dev, name, card, wi, wq):
+    """Stage A's coarse grid (csrc/coarse.cu) and stage B's tone
+    correlator (csrc/correlator.cu) against their plain versions on the
+    card, at every shape a decode path launches them with; then
+    SEARCH_DECODE_N windows decoded through the kernels and through the
+    plain versions. Returns ({kernel: rows}, the kernel decode's
+    launches)."""
+    from rtlsdr_wsprd_tpu_torch.config import DecoderOptions
+    from rtlsdr_wsprd_tpu_torch.ops import coarse, sync
+    from rtlsdr_wsprd_tpu_torch.ops.candidates import find_candidates
+    from rtlsdr_wsprd_tpu_torch.ops.stft import power_spectrogram
+    from rtlsdr_wsprd_tpu_torch.parallel import multichannel as mc
+    from rtlsdr_wsprd_tpu_torch.parallel.dryrun import launch_counts
+
+    t_phase = time.perf_counter()
+    opts = DecoderOptions()
+    rows = {"coarse_search": [], "tone_correlator": []}
+    # stage A's launch shapes: the staged decode's batch; a dense-step
+    # chunk of DENSE_WINDOWS windows whose last one is zero-padded, with
+    # maxdrift 0 there as the dense step pads it; decode_window's one
+    W = mc.DENSE_WINDOWS
+    md_chunk = torch.full((W,), opts.maxdrift, dtype=torch.int32, device=dev)
+    md_chunk[-1] = 0
+    per_window = torch.arange(SEARCH_BATCH, dtype=torch.int32, device=dev) % 5
+    cases = {
+        SEARCH_BATCH: ((4, "maxdrift 4"), (0, "maxdrift 0"),
+                       (per_window, "maxdrift (B,) 0..4")),
+        W: ((md_chunk, f"dense chunk, window {W - 1} zero-padded"),),
+        1: ((torch.full((1,), opts.maxdrift, dtype=torch.int32, device=dev),
+             "decode_window, maxdrift (1,) 4"),)}
+    for B, mds in cases.items():
+        si = torch.from_numpy(wi[:B]).to(dev)
+        sq = torch.from_numpy(wq[:B]).to(dev)
+        if B == W:
+            si[-1], sq[-1] = 0.0, 0.0
+        ps = power_spectrogram(si, sq)   # the decode's own layout
+        bins = find_candidates(ps, opts.fmin, opts.fmax).bin_idx
+        for md, label in mds:
+            rows["coarse_search"].append(
+                _coarse_case(dev, name, ps, bins, md, label))
+        del ps
+
+    # stage-B lanes as the staged decode makes them: the first valid
+    # candidates of the batch, window-major; then the dense step's chunk,
+    # every candidate slot of its windows
+    B = SEARCH_BATCH
+    si = torch.from_numpy(wi[:B]).to(dev)
+    sq = torch.from_numpy(wq[:B]).to(dev)
+    md4 = torch.full((B,), opts.maxdrift, dtype=torch.int32, device=dev)
+    sA = mc._stage_a_packed(si, sq, md4, fmin=opts.fmin, fmax=opts.fmax)
+    w_idx, c_idx = torch.nonzero(sA[:, 1] != 0, as_tuple=True)
+    w_idx, c_idx = w_idx[:SEARCH_LANES], c_idx[:SEARCH_LANES]
+    if w_idx.numel() != SEARCH_LANES:
+        fail(f"stage A found {w_idx.numel()} valid candidates in {B} "
+             f"windows, want {SEARCH_LANES}")
+    pi, pq = sync._padded_signals(si, sq)
+    lanes = {
+        "staged": (w_idx, sA[w_idx, 2, c_idx], sA[w_idx, 3, c_idx],
+                   sA[w_idx, 4, c_idx]),
+        "dense chunk": (torch.arange(W, device=dev).repeat_interleave(
+            sA.shape[2]), *(sA[:W, k].reshape(-1) for k in (2, 3, 4)))}
+    for label, (lw, freq, shift, drift) in lanes.items():
+        wr_, wi_ = sync._lane_windows(pi, pq, lw, shift.to(torch.int32))
+        freq, drift = freq.contiguous(), drift.contiguous()
+        for L in ((33, 17, 43, 1) if label == "staged" else (33, 43)):
+            rows["tone_correlator"].append(_correlator_case(
+                dev, name, wr_, wi_, freq, drift, L, label))
+        del wr_, wi_
+    del pi, pq, si, sq
+    torch.cuda.empty_cache()
+
+    # the decode through the kernels and through the plain versions
+    n = SEARCH_DECODE_N
+    reset_launches()
+    kern = mc.decode_channels(wi[:n], wq[:n], opts, device_batch=n,
+                              device=dev, fec="host")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    # the counts stay on the wrappers: reset them before they are
+    # swapped out, read them after they are back
+    reset_launches()
+    real = coarse.coarse_rows, sync._tone_mags_offsets
+    coarse.coarse_rows = coarse._row_max_plain
+    sync._tone_mags_offsets = sync._tone_mags_offsets_plain
+    try:
+        plain = mc.decode_channels(wi[:n], wq[:n], opts, device_batch=n,
+                                   device=dev, fec="host")
+        torch.cuda.synchronize()
+    finally:
+        coarse.coarse_rows, sync._tone_mags_offsets = real
+    plain_counts = launch_counts()
+    if not (counts["coarse"] and counts["correlator"]):
+        fail(f"[search] the decode launched the search kernels no time: "
+             f"{counts}")
+    if plain_counts["coarse"] or plain_counts["correlator"]:
+        fail(f"[search] the plain decode launched a kernel: {plain_counts}")
+    moved = []
+    for b, (g, w) in enumerate(zip(kern, plain)):
+        g = sorted(g, key=lambda x: x.message)
+        w = sorted(w, key=lambda x: x.message)
+        if [x.message for x in g] != [x.message for x in w]:
+            fail(f"[search] window {b}: messages through the kernels "
+                 f"{[x.message for x in g]} != plain {[x.message for x in w]}")
+        for x, y in zip(g, w):
+            if (abs(x.freq - y.freq) > 0.5e-6 or abs(x.snr - y.snr) > 0.5
+                    or abs(x.dt - y.dt) > 0.05):
+                fail(f"[search] window {b} {x.message}: (freq, snr, dt) "
+                     f"({x.freq}, {x.snr}, {x.dt}) vs plain ({y.freq}, "
+                     f"{y.snr}, {y.dt}) beyond 0.5e-6 MHz, 0.5 dB, 0.05 s")
+            if (x.cycles, x.sync, x.jitter) != (y.cycles, y.sync, y.jitter):
+                moved.append((b, x.message, (x.cycles, y.cycles),
+                              (x.sync, y.sync), (x.jitter, y.jitter)))
+    n_spots = sum(len(ch) for ch in kern)
+    log(f"[search] decode_channels on {n} windows (fec=host) through the "
+        f"kernels ({counts['coarse']} coarse, {counts['correlator']} "
+        f"correlator launches) and through the plain versions: {n_spots} "
+        f"spots, the same messages in every window, freq/snr/dt within "
+        f"0.5e-6 MHz / 0.5 dB / 0.05 s; spots whose cycles, sync or jitter "
+        f"differ (window, message, (cycles), (sync), (jitter)): {moved}")
+    log(f"[search] {time.perf_counter() - t_phase:.1f} s ({card})")
+    return rows, {"search decode": counts}
 
 
 DENSE_B = 64  # windows of the dense phase (the batch's first)
@@ -962,6 +1299,7 @@ def phase_dense(dev, name, card, wi, wq, calls, host_spots, cal):
     from rtlsdr_wsprd_tpu_torch.models.decoder import WsprDecoder
     from rtlsdr_wsprd_tpu_torch.ops.fano import batched_fano
     from rtlsdr_wsprd_tpu_torch.parallel import multichannel as mc
+    from rtlsdr_wsprd_tpu_torch.parallel.dryrun import launch_counts
     from rtlsdr_wsprd_tpu_torch.parallel.mesh import (
         channel_sharding,
         make_mesh,
@@ -1036,7 +1374,7 @@ def phase_dense(dev, name, card, wi, wq, calls, host_spots, cal):
     log(f"[dense] decode_channels(sharding=[cuda:0]): warm-up run "
         f"{time.perf_counter() - t0:.2f} s")
     counts = {}
-    batched_fano.launches = 0
+    reset_launches()
     secs = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1044,7 +1382,7 @@ def phase_dense(dev, name, card, wi, wq, calls, host_spots, cal):
         secs.append(time.perf_counter() - t0)
         if _fields(got) != _fields(spots):
             fail("dense decode runs disagree")
-    counts["dense"] = {"fano": batched_fano.launches}
+    counts["dense"] = launch_counts()
     if not counts["dense"]["fano"]:
         fail("the dense decode launched the Fano kernel no time")
     dense_rate = B / statistics.median(secs)
@@ -1098,10 +1436,10 @@ def phase_dense(dev, name, card, wi, wq, calls, host_spots, cal):
         "ChannelDecode field")
 
     # the per-window dense decoder against the mesh path
-    batched_fano.launches = 0
+    reset_launches()
     dec = WsprDecoder(opts, staged=False, device=dev)
     per = [dec.decode(wi[k], wq[k]) for k in range(4)]
-    counts["decode_window (4 windows)"] = {"fano": batched_fano.launches}
+    counts["decode_window (4 windows)"] = launch_counts()
     bad = _dense_mismatches(per, spots[:4])
     if bad:
         fail(f"WsprDecoder(staged=False) differs from the mesh path in "
@@ -1304,15 +1642,12 @@ def counted_path(label: str, counts: dict, shapes_by_path: dict,
     """Drive one path with every kernel's count set to 0 just before it;
     after it, note its launches by kernel (``counts[label]``) and the
     front end's calls by shape (``shapes_by_path[label]``)."""
-    from rtlsdr_wsprd_tpu_torch.frontend.polyphase import polyphase_decimate
-    from rtlsdr_wsprd_tpu_torch.ops.fano import batched_fano
+    from rtlsdr_wsprd_tpu_torch.parallel.dryrun import launch_counts
 
     with noted_calls() as shapes:
-        batched_fano.launches = 0
         yield shapes
         torch.cuda.synchronize()
-    counts[label] = dict(polyphase_decimate.launches,
-                         fano=batched_fano.launches)
+    counts[label] = launch_counts()
     shapes_by_path[label] = shapes
     log(f"[{phase}] {label}: launches {counts[label]}; front-end calls by "
         f"(stage, dtype, C, L, frames) {sorted(shapes.items())}")
@@ -2447,6 +2782,7 @@ def main() -> None:
     fano_rows, cal = phase_fano(dev, name, card, wi, wq, DecoderOptions(),
                                 128)
     dec = phase_decode(dev, card, wi, wq, calls, cal)
+    search_rows, search_counts = phase_search(dev, name, card, wi, wq)
     dense_rows, dense_counts, dec["dense_B64"] = phase_dense(
         dev, name, card, wi, wq, calls, dec["host_spots"], cal)
     host_spot_count = sum(len(ch) for ch in dec["host_spots"])
@@ -2505,6 +2841,47 @@ def main() -> None:
             "library_ms": main_row["library_ms"],
             "shapes": mine,
         })
+    # the search kernels: every path that decoded on the card, counted
+    # from 0 around it; a path that launched the Fano kernel ran stage A
+    # and stage B on the card too
+    search_paths = {"decode (4 host + 4 hybrid runs)": dec["search_launches"],
+                    **search_counts, **dense_counts, **paths,
+                    **quality_counts}
+    skipped = [p for p, c in search_paths.items()
+               if c.get("fano") and not (c["coarse"] and c["correlator"])]
+    if skipped or not all(search_paths["decode (4 host + 4 hybrid runs)"]
+                          .values()):
+        fail(f"paths that decoded without the search kernels: {skipped} "
+             f"{search_paths}")
+    for kname, key, src, replaces, main_shape in (
+            ("coarse_search", "coarse", "coarse.cu",
+             "rtlsdr_wsprd_tpu/ops/coarse.py:99",
+             f"B={SEARCH_BATCH}, maxdrift 4"),
+            ("tone_correlator", "correlator", "correlator.cu",
+             "rtlsdr_wsprd_tpu/ops/sync.py:241",
+             f"{SEARCH_LANES} lanes (staged), L=43: soft symbols, 43 "
+             "jitters")):
+        mine = search_rows[kname]
+        # headline: the decode's own batch (stage A) and its 43-jitter
+        # soft symbols (stage B)
+        main_row = next(r for r in mine if r["shape"] == main_shape)
+        by_path = {p: c[key] for p, c in search_paths.items()}
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": f"rtlsdr_wsprd_tpu_torch/ops/csrc/{src}",
+            "replaces": replaces,
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": main_row["ms"],
+            "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"],
+            "shape": main_shape,
+            "shapes": mine,
+        })
     # headline: the decode's heaviest device call (its first where that
     # is the heaviest) at the calibrated budget; the plain version's
     # time is the budget-16 run's on the same lanes
@@ -2538,7 +2915,8 @@ def main() -> None:
         "runs": fano_rows + dense_rows,
     })
     log(json.dumps({"decode_windows_per_s": {
-        k: round(v, 1) for k, v in dec.items() if k != "hybrid_launches"},
+        k: round(v, 1) for k, v in dec.items()
+        if k not in ("hybrid_launches", "search_launches")},
         "card": card}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

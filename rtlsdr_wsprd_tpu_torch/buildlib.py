@@ -9,11 +9,13 @@ the same time (pytest workers) never load a half-written file.
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -61,3 +63,26 @@ def build_shared(name: str, compiler: str, sources: list[Path],
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def lazy_cuda_library(name: str, sources: list[Path], flags: list[str],
+                      bind):
+    """A function that returns the ctypes library built from ``sources``
+    with nvcc (``build_shared``) and set up by ``bind(lib)`` (argument
+    and result types), building and loading it at its first call, once
+    a process and thread-safe. Raises if the build fails."""
+    lib = None
+    lock = threading.Lock()
+
+    def load():
+        nonlocal lib
+        if lib is None:
+            with lock:
+                if lib is None:
+                    loaded = ctypes.CDLL(str(build_shared(
+                        name, nvcc_path(), sources, flags)))
+                    bind(loaded)
+                    lib = loaded
+        return lib
+
+    return load

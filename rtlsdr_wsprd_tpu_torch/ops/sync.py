@@ -5,13 +5,22 @@ The reference's sync_and_demodulate (wsprd/wsprd.c:101-259) is a
 docstring derives it), all candidate lanes run at once and the
 per-sample phasor factorizes into a per-lane part and a static tone
 part; because the per-lane part is a pure exponential in the sample
-index, the correlation at EVERY static lag/jitter offset is one matmul
+index, the correlation at EVERY static lag/jitter offset reads one
+derotated 512-sample double frame a symbol, and the leftover unit phase
+vanishes under the magnitude.
+
+``_tone_mags_offsets`` is that correlator's wrapper (modes 0 and 2).
+For a CPU tensor it runs ``_tone_mags_offsets_plain``, one matmul pair
 
     (lanes*162, 512) @ (512, n_offsets*4)
 
-against a static offset-shifted tone matrix, and the leftover unit
-phase vanishes under the magnitude. The products are plain large
-``torch.matmul`` calls in float32 (TF32 off, see device.py).
+against a static offset-shifted tone matrix, in float32 (TF32 off, see
+device.py); for a CUDA tensor it launches ``csrc/correlator.cu``, which
+derotates each double frame in shared memory and forms only the 256
+nonzero terms of each column's dot product, or raises: there is no
+fallback. Both replace ``rtlsdr_wsprd_tpu/ops/sync.py``
+``_tone_mags_offsets``, an XLA program. Mode 1's 5-frequency search
+(``_tone_mags`` over a (256, 20) product) stays a ``torch.matmul``.
 
 The lane variants (``fine_sync_lanes``, ``soft_symbols_lanes``) serve
 both batched decodes: the staged one compacts the valid candidates of a
@@ -23,16 +32,20 @@ JAX package's one-window signatures (the per-window ``decode_window``).
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
+from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..buildlib import lazy_cuda_library
 from ..config import DF, DT, NBITS, NSPERSYM, NSYM
-from ..device import const
+from ..device import const, derived_const
 from ..utils.channel import PR3_VECTOR
+from .fano import NVCC_FLAGS
 
 TWOPIDT = 2.0 * np.pi * DT
 
@@ -143,9 +156,9 @@ def _offset_tone_matrix(offsets: tuple):
     return tr.reshape(ULEN, L * 4), ti.reshape(ULEN, L * 4)
 
 
-def _tone_mags_offsets(wr: torch.Tensor, wi: torch.Tensor,
-                       freq: torch.Tensor, drift: torch.Tensor,
-                       offsets: tuple, phasor=None) -> torch.Tensor:
+def _tone_mags_offsets_plain(wr: torch.Tensor, wi: torch.Tensor,
+                             freq: torch.Tensor, drift: torch.Tensor,
+                             offsets: tuple, phasor=None) -> torch.Tensor:
     """Tone magnitudes at every static window offset in one matmul
     pair: (G, WLEN) windows -> (G, 162, L, 4). Offsets are absolute
     (relative lag/jitter + HALF_SPAN)."""
@@ -157,6 +170,96 @@ def _tone_mags_offsets(wr: torch.Tensor, wi: torch.Tensor,
     tr_np, ti_np = _offset_tone_matrix(offsets)
     p = _tone_mags(yr, yi, const(tr_np, wr.device), const(ti_np, wr.device))
     return p.reshape(p.shape[0], NSYM, len(offsets), 4)
+
+
+_SOURCE = Path(__file__).resolve().parent / "csrc" / "correlator.cu"
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+
+
+def _bind(lib) -> None:
+    # tone_correlator(wr, wi, freq, drift, offsets, L, etone, twopidt, n,
+    #                 out, stream)
+    lib.tone_correlator.argtypes = [_vp, _vp, _vp, _vp, _vp, _ci, _vp,
+                                    ctypes.c_float, _ci, _vp, _vp]
+    lib.tone_correlator.restype = _ci
+
+
+_load_kernel = lazy_cuda_library("correlator", [_SOURCE], NVCC_FLAGS, _bind)
+
+
+def build_kernel() -> str:
+    """Build (if needed) and load ``csrc/correlator.cu``; returns its path."""
+    return _load_kernel()._name
+
+
+@lru_cache(maxsize=None)
+def _offsets_array(offsets: tuple) -> np.ndarray:
+    return np.asarray(offsets, np.int32)
+
+
+def _tone_table(er: np.ndarray, ei: np.ndarray) -> np.ndarray:
+    """E_TONE as the kernel takes it: float32 (2, 256, 4), re then im."""
+    return np.stack([er, ei]).astype(np.float32)
+
+
+def _tone_mags_offsets(wr: torch.Tensor, wi: torch.Tensor,
+                       freq: torch.Tensor, drift: torch.Tensor,
+                       offsets: tuple) -> torch.Tensor:
+    """Tone magnitudes at every static window offset: (G, WLEN) windows,
+    freq/drift (G,) -> (G, 162, L, 4). Offsets are absolute (relative
+    lag/jitter + HALF_SPAN), in [0, 2*HALF_SPAN].
+
+    CPU tensors take the plain version; CUDA tensors launch
+    ``csrc/correlator.cu`` (``tone_correlator``) and count the launch in
+    ``_tone_mags_offsets.launches``; any other device raises."""
+    dev = wr.device
+    if dev.type == "cpu":
+        return _tone_mags_offsets_plain(wr, wi, freq, drift, offsets)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return tone_correlator(wr, wi, freq, drift, offsets)
+
+
+def tone_correlator(wr: torch.Tensor, wi: torch.Tensor, freq: torch.Tensor,
+                    drift: torch.Tensor, offsets: tuple) -> torch.Tensor:
+    """``csrc/correlator.cu`` on CUDA tensors (``_tone_mags_offsets``'s
+    arguments, each contiguous): one launch, counted in
+    ``_tone_mags_offsets.launches``. Raises on anything the kernel does
+    not take, and if the build or the launch fails."""
+    dev = wr.device
+    G = wr.shape[0] if wr.dim() == 2 else -1
+    for name, t, shape in (("wr", wr, (G, WLEN)), ("wi", wi, (G, WLEN)),
+                           ("freq", freq, (G,)), ("drift", drift, (G,))):
+        if t.device != dev or t.dtype != torch.float32 or \
+                tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be float32{shape} on {dev}, got "
+                             f"{t.dtype}{tuple(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    offs = tuple(int(o) for o in offsets)
+    if not offs or not all(0 <= o <= 2 * HALF_SPAN for o in offs):
+        raise ValueError(f"offsets must be 1 or more in [0, {2 * HALF_SPAN}], "
+                         f"got {offsets}")
+    lib = _load_kernel()
+    L = len(offs)
+    offs_t = const(_offsets_array(offs), dev)
+    etone = derived_const(_tone_table, (E_TONE_R, E_TONE_I), dev)
+    out = torch.empty((G, NSYM, L, 4), dtype=torch.float32, device=dev)
+    if G == 0:
+        return out
+    # launch in the tensors' device, whatever the calling thread's is
+    with torch.cuda.device(dev):
+        rc = lib.tone_correlator(
+            wr.data_ptr(), wi.data_ptr(), freq.data_ptr(), drift.data_ptr(),
+            offs_t.data_ptr(), L, etone.data_ptr(), float(np.float32(TWOPIDT)),
+            G, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"correlator kernel launch failed: CUDA error {rc}")
+    _tone_mags_offsets.launches += 1
+    return out
+
+
+_tone_mags_offsets.launches = 0
 
 
 def _sync_from_powers(p: torch.Tensor) -> torch.Tensor:
@@ -184,15 +287,14 @@ def _fine_sync_core(wr, wi, freq, shift, drift, lagstep: int) -> FineSync:
     dev = wr.device
     rel_lags = _rel_lags(lagstep)
     offs = tuple(int(r) + HALF_SPAN for r in rel_lags)
-    ec512 = _cand_phasor_conj(freq, drift, ulen=ULEN)   # shared 0/1
-    p = _tone_mags_offsets(wr, wi, freq, drift, offs, phasor=ec512)
+    p = _tone_mags_offsets(wr, wi, freq, drift, offs)
     sync_l = _sync_from_powers(torch.movedim(p, 2, 0))  # (L, G)
     best_l = torch.argmax(sync_l, dim=0)  # first max wins = the C's lag order
     shift1 = shift + const(rel_lags, dev)[best_l]
 
-    # mode 1 reuses mode 0's phasor (pure exponential: identical first
-    # NSPERSYM columns)
-    ecr, eci = ec512[0][..., :NSPERSYM], ec512[1][..., :NSPERSYM]
+    # mode 1's phasor: the first NSPERSYM columns of mode 0's (a pure
+    # exponential, each element computed alone)
+    ecr, eci = _cand_phasor_conj(freq, drift)
     etr = const(E_TONE_R, dev)
     eti = const(E_TONE_I, dev)
 

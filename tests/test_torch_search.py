@@ -85,14 +85,15 @@ def test_find_candidates_ties_keep_bin_order():
 
 @pytest.mark.parametrize("maxdrift", [4, 0])
 def test_coarse_search_identical_given_jax_grid(jax_ps, maxdrift):
-    """Given the JAX grid and candidate bins, the coarse freq, shift and
-    drift are identical (first maximum wins in (ifr, k0, idrift) order);
+    """Given the JAX grid and candidate bins, the plain version's coarse
+    freq, shift and drift are identical (first maximum wins in (ifr, k0, idrift) order);
     the sync metric within 1e-5."""
     ps = np.stack(jax_ps)
     bins = np.stack([np.asarray(jcand.find_candidates(jnp.asarray(p)).bin_idx)
                      for p in jax_ps])
-    got = pcoarse.coarse_search(torch.from_numpy(ps), torch.from_numpy(bins),
-                                torch.full((3,), maxdrift, dtype=torch.int32))
+    got = pcoarse.coarse_search_plain(
+        torch.from_numpy(ps), torch.from_numpy(bins),
+        torch.full((3,), maxdrift, dtype=torch.int32))
     for b in range(3):
         ref = jcoarse.coarse_search(jnp.asarray(ps[b]), jnp.asarray(bins[b]),
                                     maxdrift)

@@ -21,11 +21,11 @@ def _t(a):
 
 
 def test_tone_mags_offsets_matches_jax_and_bruteforce(rng):
-    """The one-matmul correlator at every static offset equals the JAX
-    package's (rtol 1e-5: the same float32 products in another order)
-    and the direct per-offset form (slice, derotate with the 256-sample
-    phasor, correlate with E_TONE), with the tolerance the JAX package
-    holds its own correlator to (rtol 2e-4, atol 2e-3)."""
+    """The plain version's one-matmul correlator at every static offset
+    equals the JAX package's (rtol 1e-5: the same float32 products in
+    another order) and the direct per-offset form (slice, derotate with
+    the 256-sample phasor, correlate with E_TONE), with the tolerance the
+    JAX package holds its own correlator to (rtol 2e-4, atol 2e-3)."""
     C = 3
     wr = rng.normal(0, 1, (C, psync.WLEN)).astype(np.float32)
     wi = rng.normal(0, 1, (C, psync.WLEN)).astype(np.float32)
@@ -33,8 +33,8 @@ def test_tone_mags_offsets_matches_jax_and_bruteforce(rng):
     drift = np.linspace(-3, 3, C).astype(np.float32)
     offsets = (0, 8, 127, 129, 256)
 
-    p = psync._tone_mags_offsets(_t(wr), _t(wi), _t(freq), _t(drift),
-                                 offsets).numpy()
+    p = psync._tone_mags_offsets_plain(_t(wr), _t(wi), _t(freq), _t(drift),
+                                       offsets).numpy()
     assert p.shape == (C, 162, len(offsets), 4)
     ref = np.asarray(jsync._tone_mags_offsets(
         jnp.asarray(wr), jnp.asarray(wi), jnp.asarray(freq),

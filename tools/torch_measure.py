@@ -1,8 +1,9 @@
 """Measurement helpers shared by chip_smoke.py and the port's tools
 (tools/torch_*.py): the card's published peaks, device timing between
 CUDA events, the card banner every time is stated beside, the port's
-copy of bench.py's window batch, and the work of one polyphase kernel
-call (the bytes and operations its bound is computed from).
+copy of bench.py's window batch, and the work of one call of each
+hand-written kernel (the bytes and operations its bound is computed
+from: ``polyphase_work``, ``coarse_work``, ``correlator_work``).
 
 Imports nothing of JAX; importing it touches no device.
 """
@@ -142,6 +143,33 @@ def polyphase_work(filt, C: int, L: int, n: int, itemsize: int,
     flop_tap = 8 if np.any(first.gi) else 4
     nbytes = 2 * (1 if one_stream else C) * L * itemsize + 2 * C * n * 4
     return nbytes, flop_tap * first.T * C * n
+
+
+def coarse_work(B: int, maxdrift) -> tuple[int, int]:
+    """(bytes, FLOPs) of one ``ops.coarse.coarse_rows`` call on B windows
+    (csrc/coarse.cu). Bytes: the (B, 512, 347) float32 spectrogram, the
+    maxdrift row and the (9, 162) int32 table read once, each row's value
+    and index written once. FLOPs: one add for each of the 4 tone reads
+    of a symbol into the signed sum and one into the total, 162 symbols,
+    at every (row, lag) and each drift within the window's ``maxdrift``
+    (an int, or one per window): the drifts a run masks cost nothing."""
+    md = np.broadcast_to(np.asarray(maxdrift, dtype=np.int64), (B,))
+    drifts = int(np.sum(np.clip(2 * md + 1, 0, 9)))
+    nbytes = B * 512 * 347 * 4 + B * 4 + 9 * 162 * 4 + B * 512 * 8
+    return nbytes, 512 * 32 * 162 * 4 * 2 * drifts
+
+
+def correlator_work(G: int, L: int) -> tuple[int, int]:
+    """(bytes, FLOPs) of one ``ops.sync.tone_correlator`` call on G lanes
+    at L offsets (csrc/correlator.cu). Bytes: the two (G, 41,728) float32
+    window planes, freq and drift, the offsets and the (2, 256, 4) tone
+    table read once, the (G, 162, L, 4) magnitudes written once. FLOPs: a
+    256-term complex dot product (8 FLOPs a term) for each (symbol,
+    offset, tone), and the derotation of each symbol's 512-sample double
+    frame (4 multiplies and 2 adds a sample)."""
+    nbytes = (2 * G * 41_728 * 4 + 2 * G * 4 + L * 4 + 2 * 256 * 4 * 4
+              + G * 162 * L * 4 * 4)
+    return nbytes, G * 162 * (L * 4 * 256 * 8 + 512 * 6)
 
 
 def polyphase_bound(nbytes: int, flops: int, route: str,

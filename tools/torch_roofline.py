@@ -27,9 +27,10 @@ op of the phase; a matrix product costs what
 FLOP an output element; its bytes are its inputs plus its outputs, views
 and allocations costing nothing. That is the traffic of unfused ops, an
 upper bound on the HBM bytes. The hand-written kernels are called
-through ctypes, which the dispatcher never sees: their calls are counted
-with the formula chip_smoke.py's kernel rows use
-(``torch_measure.polyphase_work``).
+through ctypes, which the dispatcher never sees: their calls on the card
+are counted with the formulas chip_smoke.py's kernel rows use
+(``torch_measure.polyphase_work``, ``coarse_work`` for stage A's coarse
+grid, ``correlator_work`` for stage B's tone correlator).
 
 Usage: python tools/torch_roofline.py [B] [--device DEV]
 B windows (default 128); ``--device`` defaults to the CUDA card
@@ -63,10 +64,13 @@ from rtlsdr_wsprd_tpu_torch.frontend.filters import (  # noqa: E402
     R1,
     STAGE1_TAPS,
 )
+from rtlsdr_wsprd_tpu_torch.ops import coarse, sync  # noqa: E402
 from rtlsdr_wsprd_tpu_torch.ops.sync import jitter_offsets  # noqa: E402
 from rtlsdr_wsprd_tpu_torch.parallel import multichannel as mc  # noqa: E402
 from torch_measure import (  # noqa: E402
     card_peaks,
+    coarse_work,
+    correlator_work,
     cuda_ms,
     device_banner,
     make_batch,
@@ -126,12 +130,29 @@ class WorkCounter(TorchDispatchMode):
 
 @contextlib.contextmanager
 def counting():
-    """A WorkCounter over the block, with the front end's and the
-    channelizer's polyphase calls on the card counted by the kernel's
-    formula (on the CPU they run the plain version, whose aten ops the
-    counter sees)."""
+    """A WorkCounter over the block, with the hand-written kernels'
+    calls on the card counted by their formulas: the front end's and the
+    channelizer's polyphase calls, stage A's coarse grid and stage B's
+    tone correlator (on the CPU they run the plain versions, whose aten
+    ops the counter sees)."""
     real = decimate.polyphase_decimate
+    real_rows, real_corr = coarse.coarse_rows, sync.tone_correlator
     counter = WorkCounter()
+
+    def add(work):
+        counter.kernel_bytes += work[0]
+        counter.kernel_flops += work[1]
+
+    def noting_rows(ps, maxdrift):
+        if ps.device.type == "cuda":
+            md = maxdrift.cpu().numpy() if torch.is_tensor(maxdrift) \
+                else maxdrift
+            add(coarse_work(ps.shape[0], md))
+        return real_rows(ps, maxdrift)
+
+    def noting_corr(wr, wi, freq, drift, offsets):
+        add(correlator_work(wr.shape[0], len(offsets)))
+        return real_corr(wr, wi, freq, drift, offsets)
 
     def noting(xI, xQ, filt, n_frames):
         if xI.device.type == "cuda":
@@ -146,12 +167,14 @@ def counting():
 
     decimate.polyphase_decimate = noting
     channelize.polyphase_decimate = noting
+    coarse.coarse_rows, sync.tone_correlator = noting_rows, noting_corr
     try:
         with counter:
             yield counter
     finally:
         decimate.polyphase_decimate = real
         channelize.polyphase_decimate = real
+        coarse.coarse_rows, sync.tone_correlator = real_rows, real_corr
 
 
 def work(fn) -> WorkCounter:
@@ -252,7 +275,7 @@ def main() -> None:
     print(f"device {banner} B={B}; ms are {unit} ms; FLOPs and bytes "
           f"counted over the phase's aten ops (bytes: the unfused ops' "
           f"inputs + outputs, an upper bound on HBM traffic) plus the "
-          f"polyphase kernels' formula; peaks: {peaks}")
+          f"hand-written kernels' formulas; peaks: {peaks}")
     rd, rw = streaming_gbps(dev)
     print(f"measured streaming: {rd:.1f} GB/s read (256 MB sum), "
           f"{rw:.1f} GB/s read+write (256 MB axpy) ({banner})")
