@@ -84,8 +84,14 @@ Phases, in order; any failure exits non-zero before the last line:
             chunk (4 windows x 200 slots = 800 lanes) at L = 33 and 43,
             within rtol 2e-4, atol 2e-3. Each with the kernel's time,
             the plain version's, the plain route's cuBLAS products
-            alone, and the card's bound for the same work
-            (tools/torch_measure.py coarse_work, correlator_work). Then
+            alone, and the card's bound for the same work, that of the
+            kernels' own forms (tools/torch_measure.py coarse_work,
+            correlator_work; the script fails if a kernel beats it) and
+            that of the direct form (coarse_direct_work,
+            correlator_direct_work), each with the share of it the
+            kernel reaches; at L = 43 the soft symbols made of the
+            kernel's magnitudes and of the plain version's, the number
+            that differ printed. Then
             decode_channels on the first 128 windows (fec="host")
             through the kernels and with coarse_rows and
             _tone_mags_offsets swapped for their plain versions: the
@@ -261,7 +267,9 @@ import torch  # noqa: E402
 
 from torch_measure import (  # noqa: E402
     card_peaks,
+    coarse_direct_work,
     coarse_work,
+    correlator_direct_work,
     correlator_work,
     cuda_ms,
     int32_rate,
@@ -1077,24 +1085,46 @@ def _coarse_case(dev, name, ps, bins, md, label):
     lib_ms = cuda_ms(lambda: G @ w)
     del G
     md_host = md.cpu().numpy() if torch.is_tensor(md) else md
-    nbytes, flops = coarse_work(B, md_host)
-    bd = polyphase_bound(nbytes, flops, "cuda", name)
     row = dict(shape=f"B={B}, {label}", B=B, max_abs_err=float(err.max()),
                max_rel_err=float((err / pval.abs().clamp(min=1e-30)).max()),
                rtol=COARSE_RTOL, atol=COARSE_ATOL,
                near_tie_rows=int(near.sum()),
                candidates_not_compared=int(unsure.sum()),
                candidates_differing=n_cand_diff, ms=ms, plain_ms=plain_ms,
-               library_ms=lib_ms, bound_ms=bd["bound_ms"],
-               bound_by=bd["bound_by"], bytes_ms=bd["bytes_ms"],
-               fp32_core_ms=bd["fp32_core_ms"], bytes=nbytes, flop=flops)
+               library_ms=lib_ms,
+               **_bounds(name, ms, coarse_work(B, md_host),
+                         coarse_direct_work(B, md_host)))
     log(f"[search] coarse B={B} {label}: max|kernel-plain| {row['max_abs_err']:.3g}"
         f" (rtol {COARSE_RTOL}, atol {COARSE_ATOL}), {row['near_tie_rows']} "
         f"near-tie rows of {B * 512}, {row['candidates_not_compared']} "
         f"candidates on near-ties ({n_cand_diff} differ); kernel {ms:.4f} "
-        f"ms, plain {plain_ms:.4f} ms, its SGEMM {lib_ms:.4f} ms, bound "
-        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        f"ms, plain {plain_ms:.4f} ms, its SGEMM {lib_ms:.4f} ms, "
+        f"{_bounds_text(row)}")
     return row
+
+
+def _bounds(name, ms, work, direct) -> dict:
+    """A search kernel's bound for the work its own form needs and for
+    the direct form's, and the share of each its time ``ms`` reaches."""
+    bd = polyphase_bound(*work, "cuda", name)
+    dd = polyphase_bound(*direct, "cuda", name)
+    if bd["bound_ms"] > ms:
+        fail(f"a search kernel ran faster than its bound: {ms} ms against "
+             f"{bd['bound_ms']} ms")
+    return dict(bound_ms=bd["bound_ms"], bound_by=bd["bound_by"],
+                bound_share=bd["bound_ms"] / ms, bytes_ms=bd["bytes_ms"],
+                fp32_core_ms=bd["fp32_core_ms"], bytes=work[0],
+                flop=work[1], direct_bound_ms=dd["bound_ms"],
+                direct_bound_by=dd["bound_by"],
+                direct_share=dd["bound_ms"] / ms, direct_flop=direct[1])
+
+
+def _bounds_text(row) -> str:
+    return (f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; the "
+            f"kernel at {100 * row['bound_share']:.1f}% of it), the direct "
+            f"form's bound {row['direct_bound_ms']:.4f} ms "
+            f"({row['direct_bound_by']}; {row['direct_share']:.3f}x the "
+            f"kernel's time)")
 
 
 def _correlator_case(dev, name, wr, wi, freq, drift, L, label):
@@ -1114,6 +1144,21 @@ def _correlator_case(dev, name, wr, wi, freq, drift, L, label):
     if not bool((err <= CORR_RTOL * want.abs() + CORR_ATOL).all()):
         fail(f"correlator {label} L={L}: max |kernel-plain| "
              f"{float(err.max())} beyond rtol {CORR_RTOL}, atol {CORR_ATOL}")
+    soft_diff = None
+    if L == 43:
+        # the soft symbols the decode makes of them (informational)
+        soft = sync._soft_symbols_core(wr, wi, freq, drift, 3, False, 50)
+        real = sync._tone_mags_offsets
+        sync._tone_mags_offsets = sync._tone_mags_offsets_plain
+        try:
+            soft_plain = sync._soft_symbols_core(wr, wi, freq, drift, 3,
+                                                 False, 50)
+        finally:
+            sync._tone_mags_offsets = real
+        soft_diff = int((soft.symbols != soft_plain.symbols).sum())
+        log(f"[search] correlator {G} lanes ({label}): {soft_diff} of "
+            f"{soft.symbols.numel()} soft symbols (43 jitters) differ from "
+            f"the plain version's")
     ms = cuda_ms(lambda: sync._tone_mags_offsets(wr, wi, freq, drift, offs))
     plain_ms = cuda_ms(lambda: sync._tone_mags_offsets_plain(
         wr, wi, freq, drift, offs))
@@ -1125,19 +1170,16 @@ def _correlator_case(dev, name, wr, wi, freq, drift, L, label):
               for t in sync._offset_tone_matrix(offs))
     lib_ms = cuda_ms(lambda: sync._tone_mags(yr, yi, tr, ti))
     del ecr, eci, yr, yi
-    nbytes, flops = correlator_work(G, L)
-    bd = polyphase_bound(nbytes, flops, "cuda", name)
     row = dict(shape=f"{G} lanes ({label}), L={L}: {what}", G=G, L=L,
                max_abs_err=float(err.max()), rtol=CORR_RTOL, atol=CORR_ATOL,
+               soft_symbols_differing=soft_diff,
                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-               bound_ms=bd["bound_ms"], bound_by=bd["bound_by"],
-               bytes_ms=bd["bytes_ms"], fp32_core_ms=bd["fp32_core_ms"],
-               bytes=nbytes, flop=flops)
+               **_bounds(name, ms, correlator_work(G, L),
+                         correlator_direct_work(G, L)))
     log(f"[search] correlator {G} lanes ({label}) L={L} ({what}): "
         f"max|kernel-plain| {row['max_abs_err']:.3g} (rtol {CORR_RTOL}, "
         f"atol {CORR_ATOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"its SGEMMs {lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']})")
+        f"its SGEMMs {lib_ms:.4f} ms, {_bounds_text(row)}")
     return row
 
 
@@ -2878,6 +2920,7 @@ def main() -> None:
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
+            "direct_bound_ms": main_row["direct_bound_ms"],
             "library_ms": main_row["library_ms"],
             "shape": main_shape,
             "shapes": mine,

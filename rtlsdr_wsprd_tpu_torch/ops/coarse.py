@@ -15,15 +15,16 @@ of bounds there; a documented divergence).
 
 ``coarse_search`` is the wrapper. For a CPU tensor it runs
 ``coarse_search_plain``; for a CUDA tensor it launches ``csrc/coarse.cu``
-(each grid point summed directly in shared memory, only the rows' best
-value and index written) or raises: there is no fallback. Both replace
-the grid of ``rtlsdr_wsprd_tpu/ops/coarse.py`` ``coarse_search``, an XLA
-program. The plain version computes the whole (row x lag x drift) table
-as one matmul against the weight matrix ``W`` and 12 rolled sums; the
-kernel reads the table ``W`` is built from (``_fd_int`` and the pr3
-signs). The two sum in another order, so a row's value may differ by
-float32 rounding and, where two grid points of a row tie within it,
-so may its index.
+(each grid point summed from pre-summed tone planes in shared memory,
+all 9 drifts from one set of loaded rows, only the rows' best value and
+index written) or raises: there is no fallback. Both replace the grid
+of ``rtlsdr_wsprd_tpu/ops/coarse.py`` ``coarse_search``, an XLA program.
+The plain version computes the whole (row x lag x drift) table as one
+matmul against the weight matrix ``W`` and 12 rolled sums; the kernel
+carries the runs of symbols on which ``_fd_int`` is constant in its
+source and takes the pr3 signs as an argument. The two sum in another
+order, so a row's value may differ by float32 rounding and, where two
+grid points of a row tie within it, so may its index.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ import torch
 
 from ..buildlib import lazy_cuda_library
 from ..config import DF, NBITS, NSYM
-from ..device import const, derived_const
+from ..device import const
 from ..utils.channel import PR3_VECTOR
 from .fano import NVCC_FLAGS
 from .stft import BLOCKS
@@ -177,7 +178,7 @@ _vp, _ci = ctypes.c_void_p, ctypes.c_int
 
 
 def _bind(lib) -> None:
-    # coarse_rows(ps, table, maxdrift, n, row_val, row_arg, stream)
+    # coarse_rows(ps, sign, maxdrift, n, row_val, row_arg, stream)
     lib.coarse_rows.argtypes = [_vp, _vp, _vp, _ci, _vp, _vp, _vp]
     lib.coarse_rows.restype = _ci
 
@@ -188,14 +189,6 @@ _load_kernel = lazy_cuda_library("coarse", [_SOURCE], NVCC_FLAGS, _bind)
 def build_kernel() -> str:
     """Build (if needed) and load ``csrc/coarse.cu``; returns its path."""
     return _load_kernel()._name
-
-
-def _kernel_table() -> np.ndarray:
-    """The kernel's per-(drift, symbol) table, int32 (9, 162):
-    2 * _fd_int()[i, d] + the pr3 bit of symbol i (the pr3 sign is +1
-    where it is set)."""
-    return np.ascontiguousarray(2 * _fd_int().T + PR3_VECTOR[None, :],
-                                np.int32)
 
 
 def _maxdrift_rows(maxdrift, B: int, dev: torch.device) -> torch.Tensor:
@@ -237,14 +230,14 @@ def coarse_rows(ps: torch.Tensor, maxdrift) -> tuple[torch.Tensor,
     B = ps.shape[0]
     lib = _load_kernel()
     md = _maxdrift_rows(maxdrift, B, dev)
-    table = derived_const(_kernel_table, (), dev)
+    sign = const(_PR3_SIGN, dev)
     row_val = torch.empty((B, N_ROWS), dtype=torch.float32, device=dev)
     row_arg = torch.empty((B, N_ROWS), dtype=torch.int32, device=dev)
     if B == 0:
         return row_val, row_arg
     # launch in the tensors' device, whatever the calling thread's is
     with torch.cuda.device(dev):
-        rc = lib.coarse_rows(ps.data_ptr(), table.data_ptr(), md.data_ptr(),
+        rc = lib.coarse_rows(ps.data_ptr(), sign.data_ptr(), md.data_ptr(),
                              B, row_val.data_ptr(), row_arg.data_ptr(),
                              torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

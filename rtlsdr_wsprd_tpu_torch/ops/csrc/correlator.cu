@@ -14,28 +14,46 @@
 //   y[u]  = w[256 i + u] * (cosf(fp * 2 pi dt * u), -sinf(...)), u < 512
 //   z     = sum_{j < 256} y[o_l + j] * E_TONE[j, t]
 //   out[g, i, l, t] = sqrt(re(z)^2 + im(z)^2)
-// The phase, the derotation's products and the magnitude are rounded
-// as the plain version's float32 elementwise ops round them (no
-// fast-math: cosf/sinf, and __fmul_rn where a product must not fuse
-// into an FMA); only the order of the 256-term sums differs.
+// E_TONE[j, t] = exp(-i w_t j), so z = exp(i w_t o_l) (S_t[o_l + 256] -
+// S_t[o_l]) with the prefix sums S_t[u] = sum_{u' < u} y[u'] E512[u', t],
+// E512 the same phasors for u' < 512 (ops/sync.py _prefix_tone_table,
+// rounded from float64 as E_TONE is; its first 256 rows are E_TONE's).
+// The unit factor goes under the magnitude, so a symbol's 4 x L
+// magnitudes take 4 x 512 complex multiply-adds and 4 x L differences,
+// not 4 x L x 256 multiply-adds. The phase, the derotation's products
+// and the magnitude are rounded as the plain version's float32
+// elementwise ops round them (no fast-math: cosf/sinf, and __fmul_rn
+// where a product must not fuse into an FMA); the sums are taken in
+// another order.
 //
-// What bounds it on an H100: operations. A lane's dot products are
-// 162 x L x 4 x 256 complex multiply-adds (8 FLOPs each, 57 MFLOP at
-// L = 43), half of the plain route's products; its input is 334 KB and
-// its output 162 x L x 4 floats. The design:
-// - One block per (lane, group of ns symbols); the launcher picks ns so
-//   that ns x L work items fill up to 512 threads (ns <= 16; at least
-//   256 threads, which share the derotation). Each
-//   symbol's 512-sample double frame is derotated once into shared
-//   memory (planar, 1,025 floats a symbol, so that neighbouring symbols
-//   fall on neighbouring banks), with E_TONE (8 KB) beside it.
-// - A thread takes one (symbol, offset) and all 4 tones: per j, two
-//   loads of y and two broadcast float4 loads of E_TONE feed 16 FMAs.
-//   It keeps the plain version's four real sums (yr.er, yi.ei, yr.ei,
-//   yi.er) and forms re = yr.er - yi.ei, im = yr.ei + yi.er at the end.
-// - Neighbouring threads take neighbouring symbols of one offset, so
-//   the output's float4 stores are L x 16 bytes apart (not coalesced;
-//   the output is a small part of the traffic).
+// What bounds it on an H100: bytes. Reading the two window planes once
+// and writing the magnitudes is 0.017 ms at 128 lanes x L = 43; the
+// work is the derotation (a cosf and a sinf a sample, 162 x 512 a lane)
+// and 4 x 512 complex multiply-adds a symbol (tools/torch_measure.py
+// correlator_work). The design, a blocked prefix-sum correlator:
+// - One block per (lane, group of 24 symbols), 4 warps; a warp takes
+//   one symbol at a time, all 4 tones. Lane k takes the 16 consecutive
+//   samples 16k .. 16k + 15 of the double frame: 8 16-byte loads, the
+//   next symbol's issued before this one's arithmetic. It derotates
+//   them and runs the 4 tones' sums over them, storing the exclusive
+//   partial (the in-block prefix) at each position an offset reads (o
+//   and o + 256: 86 of the 513 at the 43 jitters, 2 in quickmode), one
+//   slot each, in ascending order (the wrapper's plan). E512 is staged
+//   once a block, [sample in block][lane], so that a warp's 32 lanes
+//   read 32 neighbouring entries.
+// - A shuffle scan over the 32 lane totals gives each block's prefix:
+//   S at position p is block prefix p / 16 plus partial p. No sum chain
+//   is longer than 16 + 32 terms, and a difference is taken as
+//   (prefix difference) + (partial difference).
+// - Then the warp's lanes take the L offsets: 8 shared loads, 4
+//   differences and magnitudes, one 16-byte store each, neighbouring
+//   lanes on neighbouring offsets (coalesced).
+// - The precise cosf/sinf of the derotation are most of a symbol's
+//   instructions and latency (a branch to the slow path, never taken
+//   here, keeps a warp from overlapping one sample's with the next):
+//   sincosf shares their argument reduction, and keeping only the read
+//   positions leaves 31 KB a block at the 43 jitters, so that 4 blocks
+//   (16 warps) fit an SM to hide the latency.
 // - No (G, 162, 512) plane reaches device memory.
 
 #include <atomic>
@@ -51,135 +69,199 @@ constexpr int kFrame = 2 * kSpS;          // double frame
 constexpr int kSyms = 162;
 constexpr int kHalfBits = 81;             // the drift ramp's centre and scale
 constexpr int kWlen = kSyms * kSpS + kSpS;  // 41,728: a lane's window
-constexpr int kMaxGroup = 16;             // most symbols a block
-constexpr int kMaxThreads = 512;
-constexpr int kMinThreads = 256;
-constexpr int kFrameStride = 2 * kFrame + 1;  // yr[512], yi[512], 1 pad
-constexpr int kToneFloats = 2 * kSpS * 4;     // E_TONE re, im: 2 x 256 x 4
-constexpr int kHeadBytes = kToneFloats * 4 + kMaxGroup * 4;
+constexpr int kLanes = 32;
+constexpr int kPer = kFrame / kLanes;     // 16 samples a lane
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * kLanes;
+constexpr int kSymsPerWarp = 6;
+constexpr int kGroup = kWarps * kSymsPerWarp;  // 24 symbols a block
+constexpr int kPrefixes = kLanes + 1;     // block prefixes 0..32
+constexpr int kPositions = kFrame + 1;    // S is read at positions 0..512
+constexpr int kToneF4 = 2 * kFrame;       // E512 re, im: [16][32] each
 
-__global__ void __launch_bounds__(kMaxThreads)
+// dynamic shared memory a block takes for ``n_slots`` stored positions:
+// E512, then a warp's partials re, im [n_slots] and prefixes re, im [33]
+int correlator_shared_bytes(int n_slots) {
+  return (kToneF4 + kWarps * (2 * n_slots + 2 * kPrefixes)) * 16;
+}
+
+static_assert(kPer % 4 == 0, "a lane's samples are whole float4s");
+
+__device__ __forceinline__ float comp(const float4& v, int t) {
+  return t == 0 ? v.x : (t == 1 ? v.y : (t == 2 ? v.z : v.w));
+}
+
+__global__ void __launch_bounds__(kThreads, 4)
 correlator_kernel(const float* __restrict__ wr, const float* __restrict__ wi,
                   const float* __restrict__ freq,
                   const float* __restrict__ drift,
-                  const int32_t* __restrict__ offsets, int n_offsets,
-                  int group, const float* __restrict__ etone,
+                  const int32_t* __restrict__ plan, int n_offsets,
+                  int n_slots, const float* __restrict__ etone,
                   float twopidt, float* __restrict__ out) {
   extern __shared__ float4 smem4[];
-  float4* e_re = smem4;                 // E_TONE_R[j, 0..3]
-  float4* e_im = smem4 + kSpS;          // E_TONE_I[j, 0..3]
-  float* dphi = reinterpret_cast<float*>(smem4 + 2 * kSpS);  // [group]
-  float* y = dphi + kMaxGroup;          // [group][kFrameStride]
+  float4* e_re = smem4;                   // E512[16k + m] at m * 32 + k
+  float4* e_im = smem4 + kFrame;
+  const int warp = threadIdx.x / kLanes;
+  const int k = threadIdx.x % kLanes;
+  float4* p_re = smem4 + kToneF4 + warp * (2 * n_slots + 2 * kPrefixes);
+  float4* p_im = p_re + n_slots;                    // [slot]
+  float4* b_re = p_im + n_slots;                    // [block]
+  float4* b_im = b_re + kPrefixes;
+  // the positions of lane k's samples that an offset reads (bit m for
+  // position 16k + m) and the slot of the first; position 512's slot
+  const unsigned need = static_cast<unsigned>(plan[k]);
+  const int base = plan[kLanes + k];
+  const int slot512 = plan[2 * kLanes];
+  const int32_t* triples = plan + 2 * kLanes + 1;   // (o, slot o, slot o+256)
 
   const int g = blockIdx.x;
-  const int i0 = blockIdx.y * group;
-  const int nsym = min(group, kSyms - i0);
-
+  const int i0 = blockIdx.y * kGroup;
   {
-    float* e = reinterpret_cast<float*>(smem4);
-    for (int k = threadIdx.x; k < kToneFloats; k += blockDim.x)
-      e[k] = etone[k];
+    const float4* et = reinterpret_cast<const float4*>(etone);
+    for (int u = threadIdx.x; u < kFrame; u += kThreads) {
+      const int s = (u % kPer) * kLanes + u / kPer;
+      e_re[s] = et[u];
+      e_im[s] = et[kFrame + u];
+    }
   }
-  if (threadIdx.x < nsym) {
-    const float f0 = freq[g];
-    const float half = drift[g] / 2.0f;
-    const int i = i0 + threadIdx.x;
-    const float fp = f0 + (half * static_cast<float>(i - kHalfBits)) /
-                              static_cast<float>(kHalfBits);
-    dphi[threadIdx.x] = twopidt * fp;
-  }
+  // position 512 (offset 256's end): block prefix 32, partial 0
+  if (k == 0 && slot512 >= 0)
+    p_re[slot512] = p_im[slot512] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
 
-  const float* xr = wr + static_cast<size_t>(g) * kWlen;
-  const float* xi = wi + static_cast<size_t>(g) * kWlen;
-  for (int k = threadIdx.x; k < nsym * kFrame; k += blockDim.x) {
-    const int s = k / kFrame;
-    const int u = k - s * kFrame;
-    const float ph = dphi[s] * static_cast<float>(u);
-    const float ecr = cosf(ph);
-    const float eci = -sinf(ph);
-    const size_t n = static_cast<size_t>(i0 + s) * kSpS + u;
-    const float ar = xr[n];
-    const float ai = xi[n];
-    float* ys = y + s * kFrameStride;
-    ys[u] = __fmul_rn(ar, ecr) - __fmul_rn(ai, eci);
-    ys[kFrame + u] = __fmul_rn(ar, eci) + __fmul_rn(ai, ecr);
-  }
-  __syncthreads();
-
-  for (int k = threadIdx.x; k < nsym * n_offsets; k += blockDim.x) {
-    const int s = k % nsym;
-    const int l = k / nsym;
-    const float* yr = y + s * kFrameStride + offsets[l];
-    const float* yi = yr + kFrame;
-    float rr[4] = {0.f, 0.f, 0.f, 0.f}, ii[4] = {0.f, 0.f, 0.f, 0.f};
-    float ri[4] = {0.f, 0.f, 0.f, 0.f}, ir[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-    for (int j = 0; j < kSpS; ++j) {
-      const float a = yr[j];
-      const float b = yi[j];
-      const float4 er = e_re[j];
-      const float4 ei = e_im[j];
-      const float erv[4] = {er.x, er.y, er.z, er.w};
-      const float eiv[4] = {ei.x, ei.y, ei.z, ei.w};
+  const int iend = min(i0 + kGroup, kSyms);
+  int i = i0 + warp;
+  if (i >= iend) return;
+  const float f0 = freq[g];
+  const float half = drift[g] / 2.0f;
+  const float* xr = wr + static_cast<size_t>(g) * kWlen + kPer * k;
+  const float* xi = wi + static_cast<size_t>(g) * kWlen + kPer * k;
+  float4 cr[kPer / 4], ci[kPer / 4];
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        rr[t] = fmaf(a, erv[t], rr[t]);
-        ii[t] = fmaf(b, eiv[t], ii[t]);
-        ri[t] = fmaf(a, eiv[t], ri[t]);
-        ir[t] = fmaf(b, erv[t], ir[t]);
+  for (int q = 0; q < kPer / 4; ++q) {
+    cr[q] = reinterpret_cast<const float4*>(xr + i * kSpS)[q];
+    ci[q] = reinterpret_cast<const float4*>(xi + i * kSpS)[q];
+  }
+  for (; i < iend; i += kWarps) {
+    // the next symbol's samples, in flight while this one is summed
+    float4 nr[kPer / 4] = {}, ni[kPer / 4] = {};
+    if (i + kWarps < iend) {
+#pragma unroll
+      for (int q = 0; q < kPer / 4; ++q) {
+        nr[q] = reinterpret_cast<const float4*>(xr + (i + kWarps) * kSpS)[q];
+        ni[q] = reinterpret_cast<const float4*>(xi + (i + kWarps) * kSpS)[q];
       }
     }
-    float m[4];
+    const float fp = f0 + (half * static_cast<float>(i - kHalfBits)) /
+                              static_cast<float>(kHalfBits);
+    const float dphi = twopidt * fp;
+    float sr[4] = {0.f, 0.f, 0.f, 0.f}, si[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const float zr = rr[t] - ii[t];
-      const float zi = ri[t] + ir[t];
-      m[t] = sqrtf(__fmul_rn(zr, zr) + __fmul_rn(zi, zi));
+    for (int m = 0; m < kPer; ++m) {
+      if ((need >> m) & 1u) {
+        const int slot = base + __popc(need & ((1u << m) - 1u));
+        p_re[slot] = make_float4(sr[0], sr[1], sr[2], sr[3]);
+        p_im[slot] = make_float4(si[0], si[1], si[2], si[3]);
+      }
+      const float ar = comp(cr[m / 4], m % 4);
+      const float ai = comp(ci[m / 4], m % 4);
+      const float ph = dphi * static_cast<float>(kPer * k + m);
+      // cosf and sinf with one argument reduction, bit for bit theirs
+      float sn, ecr;
+      sincosf(ph, &sn, &ecr);
+      const float eci = -sn;
+      const float yr = __fmul_rn(ar, ecr) - __fmul_rn(ai, eci);
+      const float yi = __fmul_rn(ar, eci) + __fmul_rn(ai, ecr);
+      const float4 er = e_re[m * kLanes + k];
+      const float4 ei = e_im[m * kLanes + k];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        sr[t] = fmaf(yr, comp(er, t), sr[t]);
+        sr[t] = fmaf(-yi, comp(ei, t), sr[t]);
+        si[t] = fmaf(yr, comp(ei, t), si[t]);
+        si[t] = fmaf(yi, comp(er, t), si[t]);
+      }
     }
-    const size_t o =
-        ((static_cast<size_t>(g) * kSyms + i0 + s) * n_offsets + l) * 4;
-    *reinterpret_cast<float4*>(out + o) = make_float4(m[0], m[1], m[2], m[3]);
+    // the lanes' block sums: an inclusive scan, then each lane's
+    // exclusive prefix (the previous lane's inclusive one)
+    float inc[8] = {sr[0], sr[1], sr[2], sr[3], si[0], si[1], si[2], si[3]};
+#pragma unroll
+    for (int off = 1; off < kLanes; off <<= 1) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float o = __shfl_up_sync(0xffffffffu, inc[j], off);
+        if (k >= off) inc[j] += o;
+      }
+    }
+    float ex[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      ex[j] = __shfl_up_sync(0xffffffffu, inc[j], 1);
+      if (k == 0) ex[j] = 0.0f;
+    }
+    b_re[k] = make_float4(ex[0], ex[1], ex[2], ex[3]);
+    b_im[k] = make_float4(ex[4], ex[5], ex[6], ex[7]);
+    if (k == kLanes - 1) {
+      b_re[kLanes] = make_float4(inc[0], inc[1], inc[2], inc[3]);
+      b_im[kLanes] = make_float4(inc[4], inc[5], inc[6], inc[7]);
+    }
+    __syncwarp();
+
+    float4* o_sym = reinterpret_cast<float4*>(
+        out + (static_cast<size_t>(g) * kSyms + i) * n_offsets * 4);
+    for (int l = k; l < n_offsets; l += kLanes) {
+      const int o = triples[3 * l];
+      const int k0 = o / kPer;
+      const int k1 = k0 + kSpS / kPer;  // o + 256 lies 16 blocks on
+      const int s0 = triples[3 * l + 1];
+      const int s1 = triples[3 * l + 2];
+      const float4 br0 = b_re[k0], br1 = b_re[k1];
+      const float4 bi0 = b_im[k0], bi1 = b_im[k1];
+      const float4 pr0 = p_re[s0], pr1 = p_re[s1];
+      const float4 pi0 = p_im[s0], pi1 = p_im[s1];
+      float mag[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const float zr = (comp(br1, t) - comp(br0, t)) +
+                         (comp(pr1, t) - comp(pr0, t));
+        const float zi = (comp(bi1, t) - comp(bi0, t)) +
+                         (comp(pi1, t) - comp(pi0, t));
+        mag[t] = sqrtf(__fmul_rn(zr, zr) + __fmul_rn(zi, zi));
+      }
+      o_sym[l] = make_float4(mag[0], mag[1], mag[2], mag[3]);
+    }
+    // the next symbol overwrites the partials the offsets read
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < kPer / 4; ++q) {
+      cr[q] = nr[q];
+      ci[q] = ni[q];
+    }
   }
-}
-
-// symbols a block for ``n_offsets`` offsets: ns x L work items fill up
-// to kMaxThreads threads
-int correlator_group(int n_offsets) {
-  const int g = kMaxThreads / (n_offsets > 0 ? n_offsets : 1);
-  return g < 1 ? 1 : (g > kMaxGroup ? kMaxGroup : g);
-}
-
-// threads a block: the work items rounded up to whole warps, and at
-// least kMinThreads, which derotate the block's frames (16 x 512
-// samples, a cosf and a sinf each, when L is small)
-int correlator_threads(int n_offsets) {
-  const int items = correlator_group(n_offsets) * n_offsets;
-  const int t = (items + 31) / 32 * 32;
-  return t > kMaxThreads ? kMaxThreads : (t < kMinThreads ? kMinThreads : t);
-}
-
-// dynamic shared memory a block takes, in bytes
-int correlator_shared_bytes(int n_offsets) {
-  return kHeadBytes + correlator_group(n_offsets) * kFrameStride * 4;
 }
 
 }  // namespace
 
-// wr, wi float32[n, 41728] lane windows; freq, drift float32[n];
-// offsets int32[n_offsets] in [0, 256]; etone float32[2, 256, 4]
-// (E_TONE_R then E_TONE_I); output float32[n, 162, n_offsets, 4]. All
-// device pointers, contiguous, on the current device. Launches on
-// ``stream``; returns cudaGetLastError() (0 when the launch was
-// accepted).
+// wr, wi float32[n, 41728] lane windows, 16-byte aligned; freq, drift
+// float32[n]; plan int32[65 + 3 * n_offsets] (ops/sync.py
+// _correlator_plan: for each lane k of a warp the bit mask of the
+// positions 16k .. 16k + 15 an offset reads and the slot of the first,
+// position 512's slot or -1, then for each offset (o, the slot of o,
+// the slot of o + 256)), n_slots (1..513) the positions stored; etone
+// float32[2, 512, 4] (E512 re then im); output float32[n, 162,
+// n_offsets, 4]. All device pointers, contiguous, on the current
+// device. Launches on ``stream``; returns cudaGetLastError() (0 when
+// the launch was accepted).
 extern "C" int tone_correlator(const void* wr, const void* wi,
                                const void* freq, const void* drift,
-                               const void* offsets, int n_offsets,
+                               const void* plan, int n_offsets, int n_slots,
                                const void* etone, float twopidt,
                                int n_lanes, void* out, void* stream) {
   if (n_lanes <= 0 || n_offsets <= 0) return 0;
-  // the largest block's shared memory is above the 48 KB default: opt
-  // in once a device
+  if (n_slots < 1 || n_slots > kPositions)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // a block's shared memory may pass the 48 KB default: opt in once a
+  // device, for the most positions
   static std::atomic<unsigned long long> opted{0};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -188,19 +270,22 @@ extern "C" int tone_correlator(const void* wr, const void* wi,
   if (!(opted.load() & bit)) {
     err = cudaFuncSetAttribute(correlator_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kHeadBytes + kMaxGroup * kFrameStride * 4);
+                               correlator_shared_bytes(kPositions));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // the whole unified cache as shared memory, for the most blocks an SM
+    err = cudaFuncSetAttribute(correlator_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted.fetch_or(bit);
   }
-  const int group = correlator_group(n_offsets);
   const dim3 grid(static_cast<unsigned>(n_lanes),
-                  static_cast<unsigned>((kSyms + group - 1) / group));
-  correlator_kernel<<<grid, correlator_threads(n_offsets),
-                      correlator_shared_bytes(n_offsets),
+                  static_cast<unsigned>((kSyms + kGroup - 1) / kGroup));
+  correlator_kernel<<<grid, kThreads, correlator_shared_bytes(n_slots),
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(wr), static_cast<const float*>(wi),
       static_cast<const float*>(freq), static_cast<const float*>(drift),
-      static_cast<const int32_t*>(offsets), n_offsets, group,
+      static_cast<const int32_t*>(plan), n_offsets, n_slots,
       static_cast<const float*>(etone), twopidt, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,9 +16,10 @@ For a CPU tensor it runs ``_tone_mags_offsets_plain``, one matmul pair
 
 against a static offset-shifted tone matrix, in float32 (TF32 off, see
 device.py); for a CUDA tensor it launches ``csrc/correlator.cu``, which
-derotates each double frame in shared memory and forms only the 256
-nonzero terms of each column's dot product, or raises: there is no
-fallback. Both replace ``rtlsdr_wsprd_tpu/ops/sync.py``
+derotates each double frame in registers and takes each offset's dot
+product as the difference of two prefix sums over the frame (the unit
+phase between them vanishes under the magnitude), or raises: there is
+no fallback. Both replace ``rtlsdr_wsprd_tpu/ops/sync.py``
 ``_tone_mags_offsets``, an XLA program. Mode 1's 5-frequency search
 (``_tone_mags`` over a (256, 20) product) stays a ``torch.matmul``.
 
@@ -158,14 +159,13 @@ def _offset_tone_matrix(offsets: tuple):
 
 def _tone_mags_offsets_plain(wr: torch.Tensor, wi: torch.Tensor,
                              freq: torch.Tensor, drift: torch.Tensor,
-                             offsets: tuple, phasor=None) -> torch.Tensor:
+                             offsets: tuple) -> torch.Tensor:
     """Tone magnitudes at every static window offset in one matmul
     pair: (G, WLEN) windows -> (G, 162, L, 4). Offsets are absolute
     (relative lag/jitter + HALF_SPAN)."""
     dr = _double_frames(wr)
     di = _double_frames(wi)
-    ecr, eci = (phasor if phasor is not None
-                else _cand_phasor_conj(freq, drift, ulen=ULEN))
+    ecr, eci = _cand_phasor_conj(freq, drift, ulen=ULEN)
     yr, yi = _derotate(dr, di, ecr, eci)
     tr_np, ti_np = _offset_tone_matrix(offsets)
     p = _tone_mags(yr, yi, const(tr_np, wr.device), const(ti_np, wr.device))
@@ -177,9 +177,9 @@ _vp, _ci = ctypes.c_void_p, ctypes.c_int
 
 
 def _bind(lib) -> None:
-    # tone_correlator(wr, wi, freq, drift, offsets, L, etone, twopidt, n,
-    #                 out, stream)
-    lib.tone_correlator.argtypes = [_vp, _vp, _vp, _vp, _vp, _ci, _vp,
+    # tone_correlator(wr, wi, freq, drift, plan, L, n_slots, etone,
+    #                 twopidt, n, out, stream)
+    lib.tone_correlator.argtypes = [_vp, _vp, _vp, _vp, _vp, _ci, _ci, _vp,
                                     ctypes.c_float, _ci, _vp, _vp]
     lib.tone_correlator.restype = _ci
 
@@ -193,13 +193,34 @@ def build_kernel() -> str:
 
 
 @lru_cache(maxsize=None)
-def _offsets_array(offsets: tuple) -> np.ndarray:
-    return np.asarray(offsets, np.int32)
+def _correlator_plan(offsets: tuple) -> tuple[np.ndarray, int]:
+    """The positions of the double frame (0..512) whose prefix sums the
+    kernel keeps for absolute ``offsets``: o and o + 256, stored in
+    ascending order, one slot each. Returns (int32 plan, slots): for
+    each of a warp's 32 lanes (lane k sums positions 16k .. 16k + 15)
+    the bit mask of its kept positions, then the slot of its first; the
+    slot of position 512 (-1 if none reads it); then (o, slot of o,
+    slot of o + 256) for each offset."""
+    pos = sorted({o for o in offsets} | {o + NSPERSYM for o in offsets})
+    slot = {p: i for i, p in enumerate(pos)}
+    per = ULEN // 32
+    masks, bases = [], []
+    for k in range(32):
+        kept = [m for m in range(per) if per * k + m in slot]
+        masks.append(sum(1 << m for m in kept))
+        bases.append(slot[per * k + kept[0]] if kept else 0)
+    plan = masks + bases + [slot.get(ULEN, -1)]
+    for o in offsets:
+        plan += [o, slot[o], slot[o + NSPERSYM]]
+    return np.asarray(plan, np.int32), len(pos)
 
 
-def _tone_table(er: np.ndarray, ei: np.ndarray) -> np.ndarray:
-    """E_TONE as the kernel takes it: float32 (2, 256, 4), re then im."""
-    return np.stack([er, ei]).astype(np.float32)
+def _prefix_tone_table() -> np.ndarray:
+    """The kernel's phasors exp(-i w_t u) for u < 512 (E_TONE continued
+    over the double frame), rounded from float64 as E_TONE is: float32
+    (2, 512, 4), re then im; its first 256 rows are E_TONE's."""
+    ang = TWOPIDT * DF * np.outer(np.arange(ULEN, dtype=np.float64), _t)
+    return np.stack([np.cos(ang), -np.sin(ang)]).astype(np.float32)
 
 
 def _tone_mags_offsets(wr: torch.Tensor, wi: torch.Tensor,
@@ -236,14 +257,19 @@ def tone_correlator(wr: torch.Tensor, wi: torch.Tensor, freq: torch.Tensor,
                              f"{t.dtype}{tuple(t.shape)} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    # the kernel reads the windows 16 bytes at a time
+    for name, t in (("wr", wr), ("wi", wi)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     offs = tuple(int(o) for o in offsets)
     if not offs or not all(0 <= o <= 2 * HALF_SPAN for o in offs):
         raise ValueError(f"offsets must be 1 or more in [0, {2 * HALF_SPAN}], "
                          f"got {offsets}")
     lib = _load_kernel()
     L = len(offs)
-    offs_t = const(_offsets_array(offs), dev)
-    etone = derived_const(_tone_table, (E_TONE_R, E_TONE_I), dev)
+    plan, n_slots = _correlator_plan(offs)
+    plan_t = const(plan, dev)
+    etone = derived_const(_prefix_tone_table, (), dev)
     out = torch.empty((G, NSYM, L, 4), dtype=torch.float32, device=dev)
     if G == 0:
         return out
@@ -251,8 +277,9 @@ def tone_correlator(wr: torch.Tensor, wi: torch.Tensor, freq: torch.Tensor,
     with torch.cuda.device(dev):
         rc = lib.tone_correlator(
             wr.data_ptr(), wi.data_ptr(), freq.data_ptr(), drift.data_ptr(),
-            offs_t.data_ptr(), L, etone.data_ptr(), float(np.float32(TWOPIDT)),
-            G, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            plan_t.data_ptr(), L, n_slots, etone.data_ptr(),
+            float(np.float32(TWOPIDT)), G, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"correlator kernel launch failed: CUDA error {rc}")
     _tone_mags_offsets.launches += 1

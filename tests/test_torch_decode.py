@@ -39,7 +39,7 @@ TOOLS = ("torch_snr_sweep", "torch_sensitivity_matrix", "torch_crowded_band",
          "torch_hash_census", "torch_e2e_sweep", "torch_profile_staged",
          "torch_profile_stages", "torch_roofline", "torch_fec_scaling",
          "torch_host_frontend_bench", "torch_measure", "torch_bench",
-         "torch_scaling")
+         "torch_scaling", "torch_search_ab", "torch_dense_step")
 
 
 @pytest.fixture(scope="module")

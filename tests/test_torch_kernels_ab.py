@@ -13,11 +13,15 @@ PyTorch versions, on the CPU.
   kernel's int32 indices too), equals ``coarse_search_plain``.
 - Each kernel's own source, compiled with g++ over a small emulation of
   the CUDA constructs it uses (threads of a block as std::threads meeting
-  at a std::barrier, warp shuffles through a per-warp exchange), against
-  the plain version: coarse at B=2, the correlator at G=3 and
-  L = 1, 33 and 43.
-- The work formulas of tools/torch_measure.py give the direct form's
-  FLOPs.
+  at a std::barrier, warp shuffles and __syncwarp through a per-warp
+  exchange), against the plain version: coarse at B=2 in its wide tiles
+  and at B=1 and B=4 (a zero-padded window at maxdrift 0) in its small
+  ones, the correlator at G=3 and L = 1, 17, 33 and 43. The coarse
+  source's runs of symbols are ``_fd_int``'s.
+- The correlator's algebra: the blocked prefix-sum form, in float64,
+  equals the plain version's direct form within 1e-9 of its scale.
+- The work formulas of tools/torch_measure.py: the direct form's FLOPs
+  (``*_direct_work``), and the kernels' own counts at most those.
 - On a card (marked ``cuda``; chip_smoke.py's ``search`` phase is the
   check there), each kernel against its plain version.
 """
@@ -53,6 +57,18 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """One intra-op thread for this file's tests: they hold two runs of a
+    plain version equal bit for bit, and on a loaded host MKL may split
+    one run's product over another number of threads and round it
+    differently."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def spectrogram():
     """The power spectrograms of the first 2 of windows3() (two
@@ -66,14 +82,14 @@ def spectrogram():
 
 
 def _offsets(kind: str) -> tuple:
-    if kind == "lags8":
-        rel = psync._rel_lags(8)
+    if kind.startswith("lags"):
+        rel = psync._rel_lags(int(kind[4:]))
     else:
         rel = psync.jitter_offsets(3, quickmode=(kind == "quick"))
     return tuple(int(r) + psync.HALF_SPAN for r in rel)
 
 
-OFFSET_SETS = {1: "quick", 33: "lags8", 43: "jitter"}
+OFFSET_SETS = {1: "quick", 17: "lags16", 33: "lags8", 43: "jitter"}
 
 
 def _lanes(G: int, seed: int = 7):
@@ -192,8 +208,8 @@ def test_coarse_argument_checks(failing_loaders, spectrogram):
 
 def test_correlator_argument_checks(failing_loaders):
     """float32 (G, 41728) windows and (G,) freq/drift, all contiguous,
-    offsets in [0, 256]; anything else raises before the kernel is
-    loaded."""
+    the windows 16-byte aligned, offsets in [0, 256]; anything else
+    raises before the kernel is loaded."""
     wr, wi, freq, drift = (_t(a) for a in _lanes(2))
     offs = _offsets("lags8")
     with pytest.raises(_LoaderCalled):
@@ -204,6 +220,8 @@ def test_correlator_argument_checks(failing_loaders):
         (wr, wi, freq[:1], drift, offs),
         (torch.zeros((psync.WLEN, 2)).t(), wi, freq, drift, offs),
         (wr, wi, torch.zeros(4)[::2], drift, offs),
+        (torch.zeros(2 * psync.WLEN + 1)[1:].reshape(2, -1), wi, freq,
+         drift, offs),
         (wr, wi, freq, drift.to(torch.float64), offs),
         (wr, wi, freq, drift, (0, 257)),
         (wr, wi, freq, drift, (-1,)),
@@ -245,26 +263,51 @@ _SHIM = textwrap.dedent("""\
     #include <vector>
     #define __global__
     #define __device__
+    #define __host__
     #define __forceinline__ inline
-    #define __launch_bounds__(x)
+    #define __launch_bounds__(...)
     #define __restrict__
     struct Dim3 { unsigned x, y; };
     thread_local Dim3 threadIdx, blockIdx, blockDim;
     static std::barrier<>* g_bar;
     static std::vector<std::barrier<>*> g_warp_bar;
-    static uint64_t g_slot[1024];
+    // a warp's shuffles alternate between two exchanges, so one barrier
+    // a shuffle suffices: a lane writes an exchange only after the
+    // barrier of the shuffle between, which every lane reaches after
+    // reading it
+    static uint64_t g_slot[2][1024];
+    thread_local unsigned t_shuffles;
     inline void __syncthreads() { g_bar->arrive_and_wait(); }
+    // lane t + delta's value (t ^ delta's when xor); a lane past the
+    // warp's edge keeps its own
     template <class T>
-    T __shfl_xor_sync(unsigned, T v, int lane_mask) {
+    T exchange(T v, int src) {
       const unsigned t = threadIdx.x;
-      std::memcpy(&g_slot[t], &v, sizeof(T));
+      uint64_t* slot = g_slot[t_shuffles++ & 1];
+      std::memcpy(&slot[t], &v, sizeof(T));
       g_warp_bar[t / 32]->arrive_and_wait();
-      T r;
-      std::memcpy(&r, &g_slot[t ^ lane_mask], sizeof(T));
-      g_warp_bar[t / 32]->arrive_and_wait();
+      T r = v;
+      if (src >= 0 && src < 32)
+        std::memcpy(&r, &slot[t - t % 32 + src], sizeof(T));
       return r;
     }
+    template <class T>
+    T __shfl_xor_sync(unsigned, T v, int lane_mask) {
+      return exchange(v, int(threadIdx.x % 32) ^ lane_mask);
+    }
+    template <class T>
+    T __shfl_down_sync(unsigned, T v, int delta) {
+      return exchange(v, int(threadIdx.x % 32) + delta);
+    }
+    template <class T>
+    T __shfl_up_sync(unsigned, T v, int delta) {
+      return exchange(v, int(threadIdx.x % 32) - delta);
+    }
+    inline void __syncwarp() { g_warp_bar[threadIdx.x / 32]->arrive_and_wait(); }
+    inline int __popc(unsigned v) { return __builtin_popcount(v); }
     inline float __fmul_rn(float a, float b) { return a * b; }
+    struct alignas(8) float2 { float x, y; };
+    inline float2 make_float2(float x, float y) { return {x, y}; }
     struct alignas(16) float4 { float x, y, z, w; };
     inline float4 make_float4(float x, float y, float z, float w) {
       return {x, y, z, w};
@@ -294,33 +337,54 @@ _SHIM = textwrap.dedent("""\
     """)
 
 _COARSE_LAUNCHER = textwrap.dedent("""\
-    static_assert(kSmemBytes <= sizeof(g_smem));
-    extern "C" void emu_coarse(const float* ps, const int32_t* table,
-                               const int32_t* maxdrift, int n,
-                               float* row_val, int32_t* row_arg) {
-      for (unsigned b = 0; b < unsigned(n) * (kRows / kTile); ++b)
-        run_block(b, 0, kThreads, [=] {
-          coarse_rows_kernel(ps, table, maxdrift, row_val, row_arg);
+    static_assert(smem_bytes<kWideRows, kWideWarps>() <= sizeof(g_smem));
+    // the launch csrc/coarse.cu's entry point makes, its tile chosen by
+    // ``wide`` instead of the card's SM count
+    template <int R, int W>
+    void launch(const float* ps, const float* sign, const int32_t* maxdrift,
+                int n, float* row_val, int32_t* row_arg) {
+      for (unsigned b = 0; b < unsigned(n) * (kRows / tile_rows<R, W>());
+           ++b)
+        run_block(b, 0, kLags * W, [=] {
+          coarse_rows_kernel<R, W>(ps, sign, maxdrift, row_val, row_arg);
         });
+    }
+    extern "C" void emu_coarse(const float* ps, const float* sign,
+                               const int32_t* maxdrift, int n, int wide,
+                               float* row_val, int32_t* row_arg) {
+      if (wide)
+        launch<kWideRows, kWideWarps>(ps, sign, maxdrift, n, row_val,
+                                      row_arg);
+      else
+        launch<kNarrowRows, kNarrowWarps>(ps, sign, maxdrift, n, row_val,
+                                          row_arg);
+    }
+    // COARSE_RUNS as rows of (first, end, fd of drifts 0..8); returns
+    // the number of runs
+    extern "C" int emu_runs(int* out) {
+      int n = 0;
+    #define EMU_RUN(...) { const int r[] = {__VA_ARGS__}; \\
+                           for (int v : r) out[n++] = v; }
+      COARSE_RUNS(EMU_RUN)
+      return n / 11;
     }
     """)
 
 _CORRELATOR_LAUNCHER = textwrap.dedent("""\
     extern "C" void emu_correlator(const float* wr, const float* wi,
                                    const float* freq, const float* drift,
-                                   const int32_t* offsets, int L,
+                                   const int32_t* plan, int L, int n_slots,
                                    const float* etone, float twopidt,
                                    int n, float* out) {
-      const int group = correlator_group(L);
       for (int g = 0; g < n; ++g)
-        for (int y = 0; y < (kSyms + group - 1) / group; ++y)
-          run_block(g, y, correlator_threads(L), [=] {
-            correlator_kernel(wr, wi, freq, drift, offsets, L, group, etone,
+        for (int y = 0; y < (kSyms + kGroup - 1) / kGroup; ++y)
+          run_block(g, y, kThreads, [=] {
+            correlator_kernel(wr, wi, freq, drift, plan, L, n_slots, etone,
                               twopidt, out);
           });
     }
-    extern "C" int emu_shared_bytes(int L) {
-      return correlator_shared_bytes(L);
+    extern "C" int emu_shared_bytes(int n_slots) {
+      return correlator_shared_bytes(n_slots);
     }
     """)
 
@@ -347,23 +411,31 @@ def _build(tmp: Path, source: str, shared_decl: str, shared_ptr: str,
 
 
 @pytest.fixture(scope="module")
-def emulated_coarse(tmp_path_factory):
+def coarse_lib(tmp_path_factory):
     lib = _build(tmp_path_factory.mktemp("coarse_emu"), "coarse.cu",
-                 "extern __shared__ float smem[];",
-                 "float* const smem = reinterpret_cast<float*>(g_smem);",
+                 "extern __shared__ float2 smem2[];",
+                 "float2* const smem2 = reinterpret_cast<float2*>(g_smem);",
                  _COARSE_LAUNCHER)
-    vp = ctypes.c_void_p
-    lib.emu_coarse.argtypes = [vp, vp, vp, ctypes.c_int, vp, vp]
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.emu_coarse.argtypes = [vp, vp, vp, ci, ci, vp, vp]
+    lib.emu_runs.argtypes = [vp]
+    lib.emu_runs.restype = ci
+    return lib
 
-    def run(ps: torch.Tensor, maxdrift: np.ndarray):
+
+@pytest.fixture(scope="module")
+def emulated_coarse(coarse_lib):
+    def run(ps: torch.Tensor, maxdrift: np.ndarray, wide: bool = True):
         # the kernel reads the transposed layout: (B, 347, 512) row-major
         host = ps.transpose(1, 2).contiguous().numpy()
         B = host.shape[0]
         md = np.ascontiguousarray(maxdrift, np.int32)
-        table = pcoarse._kernel_table()
+        sign = np.ascontiguousarray(pcoarse._PR3_SIGN, np.float32)
         val = np.zeros((B, 512), np.float32)
         arg = np.zeros((B, 512), np.int32)
-        lib.emu_coarse(host.ctypes.data, table.ctypes.data, md.ctypes.data, B, val.ctypes.data, arg.ctypes.data)
+        coarse_lib.emu_coarse(host.ctypes.data, sign.ctypes.data,
+                              md.ctypes.data, B, int(wide), val.ctypes.data,
+                              arg.ctypes.data)
         return val, arg
 
     return run
@@ -376,19 +448,22 @@ def emulated_correlator(tmp_path_factory):
                  "float4* const smem4 = reinterpret_cast<float4*>(g_smem);",
                  _CORRELATOR_LAUNCHER)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.emu_correlator.argtypes = [vp, vp, vp, vp, vp, ci, vp,
+    lib.emu_correlator.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp,
                                    ctypes.c_float, ci, vp]
     lib.emu_shared_bytes.argtypes = [ci]
     lib.emu_shared_bytes.restype = ci
+    # the most shared memory a block can take (every position kept)
+    assert lib.emu_shared_bytes(513) <= 232448
 
     def run(wr, wi, freq, drift, offsets):
         G, L = wr.shape[0], len(offsets)
-        assert lib.emu_shared_bytes(L) <= 232448
-        offs = np.asarray(offsets, np.int32)
-        etone = psync._tone_table(psync.E_TONE_R, psync.E_TONE_I)
+        # the kernel reads the windows 16 bytes at a time
+        assert wr.ctypes.data % 16 == 0 and wi.ctypes.data % 16 == 0
+        plan, n_slots = psync._correlator_plan(tuple(offsets))
+        etone = psync._prefix_tone_table()
         out = np.zeros((G, 162, L, 4), np.float32)
         lib.emu_correlator(wr.ctypes.data, wi.ctypes.data, freq.ctypes.data,
-                           drift.ctypes.data, offs.ctypes.data, L,
+                           drift.ctypes.data, plan.ctypes.data, L, n_slots,
                            etone.ctypes.data, float(np.float32(psync.TWOPIDT)),
                            G, out.ctypes.data)
         return out
@@ -418,11 +493,11 @@ def assert_rows_match(val, arg, ps, maxdrift):
                          ids=["md4", "md0", "per-window"])
 def test_coarse_source_emulated_matches_plain(emulated_coarse, spectrogram,
                                               maxdrift):
-    """csrc/coarse.cu run on the host at B=2, in the spectrogram's own
-    layout: each row's value within 1e-5 of the plain
-    version's, its (lag, drift) index equal outside near-ties, the
-    zeroed rows' index the first unmasked one, and the candidates'
-    (freq, shift, drift) equal to coarse_search_plain's."""
+    """csrc/coarse.cu run on the host at B=2 in its wide tiles (32 rows
+    a block), in the spectrogram's own layout: each row's value within
+    1e-5 of the plain version's, its (lag, drift) index equal outside
+    near-ties, the zeroed rows' index the first unmasked one, and the
+    candidates' (freq, shift, drift) equal to coarse_search_plain's."""
     md = np.asarray(maxdrift)
     val, arg = emulated_coarse(spectrogram, md)
     near = assert_rows_match(val, arg, spectrogram, torch.from_numpy(md))
@@ -443,17 +518,157 @@ def test_coarse_source_emulated_matches_plain(emulated_coarse, spectrogram,
                                rtol=COARSE_RTOL, atol=1e-7)
 
 
+@pytest.mark.parametrize("B", [1, 4])
+def test_coarse_source_emulated_small_batches(emulated_coarse, B):
+    """csrc/coarse.cu's small-batch tiles (8 rows a block), as the
+    dense step's chunk of 4 windows (its last one zero-padded, maxdrift
+    0 there) and decode_window's one window launch it: rows within 1e-5
+    of the plain version's, indices equal outside near-ties, and every
+    row of the zero window value 0 at index 4 (lag 0, drift 0)."""
+    wi, wq = windows3()
+    si = np.zeros((B, wi.shape[1]), np.float32)
+    sq = np.zeros_like(si)
+    n = B - 1 if B > 1 else 1
+    si[:n], sq[:n] = wi[:n], wq[:n]
+    ps = pstft.power_spectrogram(_t(si), _t(sq))
+    md = np.full(B, 4)
+    if B > 1:
+        md[-1] = 0
+    val, arg = emulated_coarse(ps, md, wide=False)
+    assert_rows_match(val, arg, ps, torch.from_numpy(md))
+    if B > 1:
+        assert (val[-1] == 0).all()
+        np.testing.assert_array_equal(arg[-1], 4)
+
+
+def test_coarse_runs_are_fd_int(coarse_lib):
+    """The runs of symbols compiled into csrc/coarse.cu (COARSE_RUNS)
+    tile 0..161 in order, and on each run the drifts' offsets are
+    _fd_int()'s at every symbol; the signs the wrapper passes are +1
+    exactly where PR3_VECTOR is set."""
+    out = np.zeros(64 * 11, np.int32)
+    n = coarse_lib.emu_runs(out.ctypes.data)
+    runs = out[:n * 11].reshape(n, 11)
+    assert runs[0, 0] == 0 and runs[-1, 1] == 162
+    assert (runs[1:, 0] == runs[:-1, 1]).all()
+    fd = pcoarse._fd_int()
+    for first, end, *offs in runs:
+        assert first < end
+        np.testing.assert_array_equal(fd[first:end],
+                                      np.broadcast_to(offs, (end - first, 9)))
+    # each run is as long as it can be: the offsets change between runs
+    assert all((runs[k, 2:] != runs[k + 1, 2:]).any() for k in range(n - 1))
+    from rtlsdr_wsprd_tpu_torch.utils.channel import PR3_VECTOR
+    assert pcoarse._PR3_SIGN.dtype == np.float32
+    np.testing.assert_array_equal(pcoarse._PR3_SIGN, 2.0 * PR3_VECTOR - 1)
+
+
 @pytest.mark.parametrize("L", sorted(OFFSET_SETS))
 def test_correlator_source_emulated_matches_plain(emulated_correlator, L):
     """csrc/correlator.cu run on the host at G=3 lanes and the decode's
-    offset sets (L = 1 quickmode jitter, 33 fine-sync lags, 43 jitters):
-    within rtol 2e-4, atol 2e-3 of the plain version."""
+    offset sets (L = 1 quickmode jitter, 17 quickmode fine-sync lags, 33
+    fine-sync lags, 43 jitters): within rtol 2e-4, atol 2e-3 of the
+    plain version."""
     wr, wi, freq, drift = _lanes(3, seed=L)
     offs = _offsets(OFFSET_SETS[L])
     got = emulated_correlator(wr, wi, freq, drift, offs)
     want = psync._tone_mags_offsets_plain(_t(wr), _t(wi), _t(freq),
                                           _t(drift), offs).numpy()
     np.testing.assert_allclose(got, want, rtol=CORR_RTOL, atol=CORR_ATOL)
+
+
+def _prefix_form(wr, wi, freq, drift, offsets):
+    """The correlator as csrc/correlator.cu factors it, in torch at the
+    inputs' precision: derotate as the plain version does, multiply by
+    exp(-i w_t u) over the 512-sample frame, sum blocks of 16 samples
+    (each position's exclusive partial within its block), scan the block
+    sums, and take |S(o + 256) - S(o)| with S(p) the prefix of block
+    p // 16 plus partial p (S(512) the frame's total)."""
+    G, L = wr.shape[0], len(offsets)
+    yr, yi = psync._derotate(psync._double_frames(wr),
+                             psync._double_frames(wi),
+                             *psync._cand_phasor_conj(freq, drift,
+                                                      ulen=psync.ULEN))
+    ang = psync.TWOPIDT * psync.DF * np.outer(np.arange(psync.ULEN),
+                                              psync._t)
+    er = torch.from_numpy(np.cos(ang)).to(wr.dtype)
+    ei = torch.from_numpy(-np.sin(ang)).to(wr.dtype)
+    pr = yr[..., None] * er - yi[..., None] * ei    # (G, 162, 512, 4)
+    pi = yr[..., None] * ei + yi[..., None] * er
+
+    def prefix(x):
+        blk = x.reshape(G, 162, 32, 16, 4)
+        part = torch.nn.functional.pad(torch.cumsum(blk, 3)[:, :, :, :-1],
+                                       (0, 0, 1, 0))
+        tot = blk.sum(3)                            # (G, 162, 32, 4)
+        bp = torch.nn.functional.pad(torch.cumsum(tot, 2), (0, 0, 1, 0))
+        pos = torch.tensor(offsets)
+        ends = pos + 256
+        s0 = bp[:, :, pos // 16] + part[:, :, pos // 16, pos % 16]
+        # position 512 is the total: block 32's prefix, partial 0
+        s1 = bp[:, :, ends // 16] + torch.where(
+            (ends < 512)[:, None],
+            part[:, :, torch.clamp(ends // 16, max=31), ends % 16], 0.0)
+        return s1 - s0                              # (G, 162, L, 4)
+
+    zr, zi = prefix(pr), prefix(pi)
+    return torch.sqrt(zr * zr + zi * zi).reshape(G, 162, L, 4)
+
+
+def _direct_form64(wr, wi, freq, drift, offsets):
+    """_tone_mags_offsets_plain's own steps at float64, its offset tone
+    matrix built from the float64 angles (its tables are float32)."""
+    L = len(offsets)
+    yr, yi = psync._derotate(psync._double_frames(wr),
+                             psync._double_frames(wi),
+                             *psync._cand_phasor_conj(freq, drift,
+                                                      ulen=psync.ULEN))
+    tr = np.zeros((psync.ULEN, L, 4))
+    ti = np.zeros((psync.ULEN, L, 4))
+    for k, o in enumerate(offsets):
+        tr[o:o + 256, k] = np.cos(psync._ANG_TONE)
+        ti[o:o + 256, k] = -np.sin(psync._ANG_TONE)
+    p = psync._tone_mags(yr, yi, _t(tr.reshape(psync.ULEN, -1)),
+                         _t(ti.reshape(psync.ULEN, -1)))
+    return p.reshape(wr.shape[0], 162, L, 4)
+
+
+def _windows3_lanes():
+    """4 lanes cut from windows3() as stage B cuts them: the two signals
+    and the noise window at their coarse shifts, one lane drifting."""
+    wi, wq = windows3()
+    pi, pq = psync._padded_signals(_t(wi), _t(wq))
+    lane_w = torch.tensor([0, 0, 1, 2])
+    shift = torch.tensor([256, 128, 512, -384])
+    wr_, wi_ = psync._lane_windows(pi, pq, lane_w, shift)
+    freq = np.asarray([-40.0, -35.0, 30.0, 0.0], np.float32)
+    drift = np.asarray([0.0, 1.0, -0.5, 3.0], np.float32)
+    return wr_.numpy(), wi_.numpy(), freq, drift
+
+
+@pytest.mark.parametrize("lanes", ["_lanes", "windows3"])
+def test_correlator_prefix_algebra(lanes):
+    """The blocked prefix-sum factorisation the correlator kernel uses,
+    run in torch at float64, equals the plain version's direct form at
+    float64 within 1e-9 of the output's scale at every offset set
+    (noise lanes, and lanes cut from windows3's signals), and the
+    float32 plain version within the kernel's tolerance; the kernel's
+    512-row phasor table continues E_TONE."""
+    table = psync._prefix_tone_table()
+    np.testing.assert_array_equal(table[0, :256], psync.E_TONE_R)
+    np.testing.assert_array_equal(table[1, :256], psync.E_TONE_I)
+    src = _lanes(2, seed=5) if lanes == "_lanes" else _windows3_lanes()
+    f64 = [_t(a.astype(np.float64)) for a in src]
+    f32 = [_t(a) for a in src]
+    for kind in OFFSET_SETS.values():
+        offs = _offsets(kind)
+        got = _prefix_form(*f64, offs)
+        want = _direct_form64(*f64, offs)
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-9, atol=1e-9 * scale)
+        plain = psync._tone_mags_offsets_plain(*f32, offs)
+        torch.testing.assert_close(got.float(), plain, rtol=CORR_RTOL,
+                                   atol=CORR_ATOL)
 
 
 # ---- the work formulas ----------------------------------------------------
@@ -466,13 +681,16 @@ def measure():
 
 @pytest.mark.parametrize("maxdrift", [4, 0, (4, 1)])
 def test_coarse_work_is_the_direct_form(measure, maxdrift):
-    """coarse_work at B=2: one add for each nonzero of the plain
+    """coarse_direct_work at B=2: one add for each nonzero of the plain
     route's weight matrix W in the drifts each window keeps, at every
     (row, lag); the bytes are the spectrogram, maxdrift and table read
-    once and the rows written once."""
+    once and the rows written once. coarse_work, the kernel's pre-summed
+    form, counts at most as many FLOPs and no more bytes."""
     tm, _ = measure
     B = 2
-    nbytes, flops = tm.coarse_work(B, maxdrift)
+    nbytes, flops = tm.coarse_direct_work(B, maxdrift)
+    new_bytes, new_flops = tm.coarse_work(B, maxdrift)
+    assert new_flops <= flops and new_bytes <= nbytes
     Wd = pcoarse.W.reshape(162, 9, -1)
     nnz = 0
     for md in np.broadcast_to(np.asarray(maxdrift), (B,)):
@@ -484,19 +702,22 @@ def test_coarse_work_is_the_direct_form(measure, maxdrift):
 
 @pytest.mark.parametrize("L", sorted(OFFSET_SETS))
 def test_correlator_work_is_the_direct_form(measure, L):
-    """correlator_work at 3 lanes: the dot products are half the plain
-    route's counted matrix-product FLOPs (its tone matrix is zero on 256
-    of each column's 512 rows), plus 6 FLOPs a derotated sample."""
+    """correlator_direct_work at 3 lanes: the dot products are half the
+    plain route's counted matrix-product FLOPs (its tone matrix is zero
+    on 256 of each column's 512 rows), plus 6 FLOPs a derotated sample.
+    correlator_work, the least of the prefix-sum form and the direct
+    one, counts at most as many FLOPs."""
     tm, roof = measure
     G = 3
     wr, wi, freq, drift = (_t(a) for a in _lanes(G))
     offs = _offsets(OFFSET_SETS[L])
     with roof.counting() as c:
         psync._tone_mags_offsets_plain(wr, wi, freq, drift, offs)
-    nbytes, flops = tm.correlator_work(G, L)
+    nbytes, flops = tm.correlator_direct_work(G, L)
     assert flops - G * 162 * 512 * 6 == c.mm_flops // 2
     assert nbytes == (2 * G * psync.WLEN * 4 + 8 * G + 4 * L + 8192
                       + G * 162 * L * 16)
+    assert tm.correlator_work(G, L)[1] <= flops
 
 
 # ---- on the card ---------------------------------------------------------

@@ -3,7 +3,9 @@
 CUDA events, the card banner every time is stated beside, the port's
 copy of bench.py's window batch, and the work of one call of each
 hand-written kernel (the bytes and operations its bound is computed
-from: ``polyphase_work``, ``coarse_work``, ``correlator_work``).
+from: ``polyphase_work``, ``coarse_work``, ``correlator_work``, and the
+search kernels' direct forms beside them, ``coarse_direct_work`` and
+``correlator_direct_work``).
 
 Imports nothing of JAX; importing it touches no device.
 """
@@ -147,12 +149,29 @@ def polyphase_work(filt, C: int, L: int, n: int, itemsize: int,
 
 def coarse_work(B: int, maxdrift) -> tuple[int, int]:
     """(bytes, FLOPs) of one ``ops.coarse.coarse_rows`` call on B windows
-    (csrc/coarse.cu). Bytes: the (B, 512, 347) float32 spectrogram, the
-    maxdrift row and the (9, 162) int32 table read once, each row's value
-    and index written once. FLOPs: one add for each of the 4 tone reads
-    of a symbol into the signed sum and one into the total, 162 symbols,
-    at every (row, lag) and each drift within the window's ``maxdrift``
-    (an int, or one per window): the drifts a run masks cost nothing."""
+    (csrc/coarse.cu): the least work of its pre-summed form. Bytes: the
+    (B, 512, 347) float32 spectrogram, the maxdrift row and the 162 pr3
+    signs read once, each row's value and index written once. FLOPs: 2
+    adds for each (row, lag, symbol) and each drift within the window's
+    ``maxdrift`` (an int, or one per window; the drifts a run masks cost
+    nothing): one into the total, one signed into the sync sum; plus
+    the two pre-summed planes of each window that keeps a drift, 3 adds
+    each for every (row, column) of the spectrogram. The FP32 peak
+    counts an FMA as 2 FLOPs, so a kernel of adds reaches at most half
+    of the bound these give."""
+    md = np.broadcast_to(np.asarray(maxdrift, dtype=np.int64), (B,))
+    drifts = int(np.sum(np.clip(2 * md + 1, 0, 9)))
+    planes = int(np.sum(md >= 0)) * 512 * 347 * 6
+    nbytes = B * 512 * 347 * 4 + B * 4 + 162 * 4 + B * 512 * 8
+    return nbytes, 512 * 32 * 162 * 2 * drifts + planes
+
+
+def coarse_direct_work(B: int, maxdrift) -> tuple[int, int]:
+    """(bytes, FLOPs) of the direct form of ``coarse_work``'s call, each
+    grid point's 4 tone reads summed from a (9, 162) int32 table of
+    drift offsets and signs: one add for each of the 4 tone reads of a
+    symbol into the signed sum and one into the total, 162 symbols, at
+    every (row, lag) and each drift within the window's ``maxdrift``."""
     md = np.broadcast_to(np.asarray(maxdrift, dtype=np.int64), (B,))
     drifts = int(np.sum(np.clip(2 * md + 1, 0, 9)))
     nbytes = B * 512 * 347 * 4 + B * 4 + 9 * 162 * 4 + B * 512 * 8
@@ -161,12 +180,27 @@ def coarse_work(B: int, maxdrift) -> tuple[int, int]:
 
 def correlator_work(G: int, L: int) -> tuple[int, int]:
     """(bytes, FLOPs) of one ``ops.sync.tone_correlator`` call on G lanes
-    at L offsets (csrc/correlator.cu). Bytes: the two (G, 41,728) float32
-    window planes, freq and drift, the offsets and the (2, 256, 4) tone
-    table read once, the (G, 162, L, 4) magnitudes written once. FLOPs: a
-    256-term complex dot product (8 FLOPs a term) for each (symbol,
-    offset, tone), and the derotation of each symbol's 512-sample double
-    frame (4 multiplies and 2 adds a sample)."""
+    at L offsets (csrc/correlator.cu): the least work of its prefix-sum
+    form. Bytes: the two (G, 41,728) float32 window planes, freq and
+    drift, the offsets and the (2, 512, 4) phasor table read once, the
+    (G, 162, L, 4) magnitudes written once. FLOPs a symbol: the
+    derotation of its 512-sample double frame (4 multiplies and 2 adds a
+    sample), then the lesser of the prefix sums (4 tones x 512 complex
+    multiply-adds, 8 FLOPs each, and for each offset and tone a complex
+    difference and a squared magnitude, 5 FLOPs) and the direct form's
+    dot products (``correlator_direct_work``: fewer only at L = 1)."""
+    nbytes = (2 * G * 41_728 * 4 + 2 * G * 4 + L * 4 + 2 * 512 * 4 * 4
+              + G * 162 * L * 4 * 4)
+    sums = min(4 * 512 * 8 + L * 4 * 5, L * 4 * 256 * 8)
+    return nbytes, G * 162 * (sums + 512 * 6)
+
+
+def correlator_direct_work(G: int, L: int) -> tuple[int, int]:
+    """(bytes, FLOPs) of the direct form of ``correlator_work``'s call:
+    the (2, 256, 4) tone table read, and a 256-term
+    complex dot product (8 FLOPs a term) for each (symbol, offset,
+    tone), plus the derotation of each symbol's 512-sample double frame
+    (4 multiplies and 2 adds a sample)."""
     nbytes = (2 * G * 41_728 * 4 + 2 * G * 4 + L * 4 + 2 * 256 * 4 * 4
               + G * 162 * L * 4 * 4)
     return nbytes, G * 162 * (L * 4 * 256 * 8 + 512 * 6)

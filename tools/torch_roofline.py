@@ -30,7 +30,11 @@ upper bound on the HBM bytes. The hand-written kernels are called
 through ctypes, which the dispatcher never sees: their calls on the card
 are counted with the formulas chip_smoke.py's kernel rows use
 (``torch_measure.polyphase_work``, ``coarse_work`` for stage A's coarse
-grid, ``correlator_work`` for stage B's tone correlator).
+grid, ``correlator_work`` for stage B's tone correlator: the work of
+the kernels' own forms). Beside each row, the same phase with the two
+search kernels counted in their direct form (``coarse_direct_work``,
+``correlator_direct_work``: every grid point's tone reads, every
+offset's 256-term dot products), for rows comparable across designs.
 
 Usage: python tools/torch_roofline.py [B] [--device DEV]
 B windows (default 128); ``--device`` defaults to the CUDA card
@@ -69,7 +73,9 @@ from rtlsdr_wsprd_tpu_torch.ops.sync import jitter_offsets  # noqa: E402
 from rtlsdr_wsprd_tpu_torch.parallel import multichannel as mc  # noqa: E402
 from torch_measure import (  # noqa: E402
     card_peaks,
+    coarse_direct_work,
     coarse_work,
+    correlator_direct_work,
     correlator_work,
     cuda_ms,
     device_banner,
@@ -92,7 +98,9 @@ class WorkCounter(TorchDispatchMode):
     """FLOPs and bytes of the aten ops run under it (see the module
     docstring), plus the hand-written kernels' calls noted by
     ``counting``: ``mm_flops`` (matrix products), ``other_flops``,
-    ``bytes``, ``kernel_flops``, ``kernel_bytes``."""
+    ``bytes``, ``kernel_flops``, ``kernel_bytes``, and the kernels' work
+    with the search kernels in their direct form, ``direct_kernel_flops``
+    and ``direct_kernel_bytes``."""
 
     def __init__(self):
         super().__init__()
@@ -101,6 +109,8 @@ class WorkCounter(TorchDispatchMode):
         self.bytes = 0
         self.kernel_flops = 0
         self.kernel_bytes = 0
+        self.direct_kernel_flops = 0
+        self.direct_kernel_bytes = 0
 
     @property
     def flops(self) -> int:
@@ -139,30 +149,32 @@ def counting():
     real_rows, real_corr = coarse.coarse_rows, sync.tone_correlator
     counter = WorkCounter()
 
-    def add(work):
+    def add(work, direct=None):
         counter.kernel_bytes += work[0]
         counter.kernel_flops += work[1]
+        direct = direct or work
+        counter.direct_kernel_bytes += direct[0]
+        counter.direct_kernel_flops += direct[1]
 
     def noting_rows(ps, maxdrift):
         if ps.device.type == "cuda":
             md = maxdrift.cpu().numpy() if torch.is_tensor(maxdrift) \
                 else maxdrift
-            add(coarse_work(ps.shape[0], md))
+            add(coarse_work(ps.shape[0], md),
+                coarse_direct_work(ps.shape[0], md))
         return real_rows(ps, maxdrift)
 
     def noting_corr(wr, wi, freq, drift, offsets):
-        add(correlator_work(wr.shape[0], len(offsets)))
+        add(correlator_work(wr.shape[0], len(offsets)),
+            correlator_direct_work(wr.shape[0], len(offsets)))
         return real_corr(wr, wi, freq, drift, offsets)
 
     def noting(xI, xQ, filt, n_frames):
         if xI.device.type == "cuda":
             bank = isinstance(filt, (list, tuple))
             C = xI.shape[0] if xI.dim() == 2 else 1
-            nbytes, flops = polyphase_work(filt, C, xI.shape[-1], n_frames,
-                                           xI.element_size(),
-                                           one_stream=bank)
-            counter.kernel_bytes += nbytes
-            counter.kernel_flops += flops
+            add(polyphase_work(filt, C, xI.shape[-1], n_frames,
+                               xI.element_size(), one_stream=bank))
         return real(xI, xQ, filt, n_frames)
 
     decimate.polyphase_decimate = noting
@@ -294,7 +306,11 @@ def main() -> None:
         ms = phase_ms(fn, dev)
         rows.append({"phase": name, "ms": ms, "flop": w.flops,
                      "mm_flop": w.mm_flops, "kernel_flop": w.kernel_flops,
-                     "bytes": w.total_bytes})
+                     "bytes": w.total_bytes,
+                     "flop_direct_form": (w.mm_flops + w.other_flops
+                                          + w.direct_kernel_flops),
+                     "bytes_direct_form": (w.bytes
+                                           + w.direct_kernel_bytes)})
     print(f"{'phase':34s} {'ms':>10} {'GFLOP':>9} {'GB':>8} {'TFLOP/s':>8} "
           f"{'GB/s':>8} {'AI':>6} {'%peakF':>7} {'%peakB':>7}")
     for r in rows:
@@ -310,6 +326,15 @@ def main() -> None:
         print(f"{r['phase']:34s} {r['ms']:10.4f} {r['flop'] / 1e9:9.3f} "
               f"{r['bytes'] / 1e9:8.3f} {tf:8.3f} {gb:8.1f} {r['ai']:6.2f} "
               f"{pf} {pb}")
+    for r in rows:
+        if r["flop_direct_form"] == r["flop"]:
+            continue
+        s = r["ms"] / 1e3
+        pf = (f", {100 * r['flop_direct_form'] / s / peak_f:.2f}% of the "
+              f"FP32 peak" if peak_f else "")
+        print(f"{r['phase']}: with the search kernels counted in their "
+              f"direct form {r['flop_direct_form'] / 1e9:.3f} GFLOP, "
+              f"{r['bytes_direct_form'] / 1e9:.3f} GB{pf}")
     syncs = B * 512 * 32 * 9 / (rows[0]["ms"] / 1e3)
     fe_msps = fe_C * fe_frames * R1 / (rows[2]["ms"] / 1e3) / 1e6
     caps = n_mid * R1 / (rows[3]["ms"] / 1e3) / 2.4e6
