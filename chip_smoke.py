@@ -5,12 +5,13 @@
 Phases, in order; any failure exits non-zero before the last line:
 
 1. env      torch/CUDA versions, the card's name and power limit, TF32 off.
-2. build    the five CUDA kernels (nvcc: polyphase_tc.cu, the
+2. build    the six CUDA kernels (nvcc: polyphase_tc.cu, the
             tensor-core stage-1 kernel for uint8 input, polyphase.cu, the
             FP32-core kernel for float32 input, fano.cu, the batched
-            Fano decoder, coarse.cu, stage A's coarse grid search, and
-            correlator.cu, stage B's tone correlator) and the host Fano
-            library (g++), built at the same time from this checkout.
+            Fano decoder, stft.cu, stage A's power spectrogram, coarse.cu,
+            stage A's coarse grid search, and correlator.cu, stage B's
+            tone correlator) and the host Fano library (g++), built at
+            the same time from this checkout.
 3. frontend the main path: a 120 s synthetic raw 2.4 Msps uint8 capture
             streamed in 10 s chunks through BatchedStreamingDecimator (8
             lanes, each fed the same capture), lane 0's window decoded by
@@ -64,10 +65,25 @@ Phases, in order; any failure exits non-zero before the last line:
             the host result, with windows/s; then one run in the mode
             fec="auto" picks under torch.profiler (host time per
             labelled range, the card's kernel time and busy share). The
-            coarse and correlator kernels' launches are set to 0 just
-            before the host runs and again before the hybrid runs, read
-            just after each, and added.
-   search   stage A's coarse grid (coarse.cu) against its plain version
+            stft, coarse and correlator kernels' launches are set to 0
+            just before the host runs and again before the hybrid runs,
+            read just after each, and added.
+   search   stage A's power spectrogram (stft.cu) against its plain
+            version at the batch sizes the paths launch it with (the
+            staged decode's 128 windows; a dense-step chunk of 4 whose
+            last window is zero-padded; decode_window's one): every bin
+            within rtol 1e-4 and atol 1e-6 x its window's plain peak
+            (the max |kernel - plain| printed), a window of zeros exactly
+            0, both against a float64 FFT; the candidates find_candidates
+            picks from each spectrogram the same bins in the same order
+            outside near-ties (peak and SNR near-ties counted), the coarse
+            rows each gives equal outside near-tie rows (moved indices
+            counted); the kernel's time, the plain version's, one
+            torch.stft call's (cuFFT, a yardstick) and the bound
+            (tools/torch_measure.py stft_work; the script fails if the
+            kernel beats it; stft_direct_work, the plain version's
+            products, beside it). Then
+            stage A's coarse grid (coarse.cu) against its plain version
             on power spectrograms in the decode's own layout, at the
             batch sizes the paths launch it with: the staged decode's
             128 windows at maxdrift 4, 0 and a (B,) tensor 0..4; a
@@ -93,8 +109,8 @@ Phases, in order; any failure exits non-zero before the last line:
             kernel's magnitudes and of the plain version's, the number
             that differ printed. Then
             decode_channels on the first 128 windows (fec="host")
-            through the kernels and with coarse_rows and
-            _tone_mags_offsets swapped for their plain versions: the
+            through the kernels and with power_spectrogram, coarse_rows
+            and _tone_mags_offsets swapped for their plain versions: the
             same messages in every window, freq, snr and dt within the
             dense-vs-staged tolerances, the spots whose cycles, sync or
             jitter moved printed.
@@ -238,8 +254,10 @@ Phases, in order; any failure exits non-zero before the last line:
             prepare_windows(device=None), make_mesh(["cuda"]) and
             MultiChannelDaemon(device=None) must name cuda:0.
 
-Every path that launched the Fano kernel must have launched the coarse
-and correlator kernels too. Then a JSON line per kernel, the card's
+Every path that launched the Fano kernel must have launched the stft,
+coarse and correlator kernels too, and every path stft exactly as often
+as coarse (stage A runs both at each call). Then a JSON line per
+kernel, the card's
 name and power limit, and the last line ``{"ok": true, "device":
 {...}}``. Needs one CUDA card; exits
 non-zero without one. Imports nothing of JAX.
@@ -278,6 +296,8 @@ from torch_measure import (  # noqa: E402
     polyphase_bound,
     polyphase_work,
     spin_cycles_per_ms,
+    stft_direct_work,
+    stft_work,
 )
 
 
@@ -314,7 +334,7 @@ def phase_env():
 def phase_build():
     from rtlsdr_wsprd_tpu_torch import native
     from rtlsdr_wsprd_tpu_torch.frontend import polyphase
-    from rtlsdr_wsprd_tpu_torch.ops import coarse, fano, sync
+    from rtlsdr_wsprd_tpu_torch.ops import coarse, fano, stft, sync
 
     took: dict[str, float] = {}
     errors: list[Exception] = []
@@ -331,6 +351,7 @@ def phase_build():
         ("polyphase_tc.cu (nvcc)", lambda: polyphase.build_kernel("tc")),
         ("polyphase.cu (nvcc)", lambda: polyphase.build_kernel("direct")),
         ("fano.cu (nvcc)", fano.build_kernel),
+        ("stft.cu (nvcc)", stft.build_kernel),
         ("coarse.cu (nvcc)", coarse.build_kernel),
         ("correlator.cu (nvcc)", sync.build_kernel),
         ("hostdsp.cpp (g++)", native.build))]
@@ -492,12 +513,13 @@ def reset_launches() -> None:
     """Every kernel's launch count to 0 (parallel/dryrun.py
     launch_counts reads them)."""
     from rtlsdr_wsprd_tpu_torch.frontend.polyphase import polyphase_decimate
-    from rtlsdr_wsprd_tpu_torch.ops import coarse, sync
+    from rtlsdr_wsprd_tpu_torch.ops import coarse, stft, sync
     from rtlsdr_wsprd_tpu_torch.ops.fano import batched_fano
 
     for route in polyphase_decimate.launches:
         polyphase_decimate.launches[route] = 0
     batched_fano.launches = 0
+    stft.power_spectrogram.launches = 0
     coarse.coarse_search.launches = 0
     sync._tone_mags_offsets.launches = 0
 
@@ -961,10 +983,12 @@ def phase_decode(dev, card, wi, wq, calls, cal, DB: int = 128):
     hybrid_counts = launch_counts()
     launches = hybrid_counts["fano"]
     searched = {k: host_counts[k] + hybrid_counts[k]
-                for k in ("coarse", "correlator")}
-    log(f"[decode] search kernel launches: host runs {host_counts['coarse']}"
-        f" coarse / {host_counts['correlator']} correlator, hybrid runs "
-        f"{hybrid_counts['coarse']} / {hybrid_counts['correlator']}")
+                for k in ("stft", "coarse", "correlator")}
+    log(f"[decode] stage A and B kernel launches: host runs "
+        f"{host_counts['stft']} stft / {host_counts['coarse']} coarse / "
+        f"{host_counts['correlator']} correlator, hybrid runs "
+        f"{hybrid_counts['stft']} / {hybrid_counts['coarse']} / "
+        f"{hybrid_counts['correlator']}")
     if not launches:
         fail("the hybrid decode launched the Fano kernel no time")
     if _fields(hybrid) != _fields(host):
@@ -1021,6 +1045,174 @@ def _offset_sets() -> dict:
                  absolute(sync.jitter_offsets(3, False))),
             1: ("soft symbols, quickmode", absolute(sync.jitter_offsets(3,
                                                                         True)))}
+
+
+# every bin within rtol of the plain version's and atol of its window's
+# peak: the tolerance the plain version is held to against the JAX
+# package (tests/test_torch_search.py)
+STFT_RTOL, STFT_ATOL_OF_PEAK = 1e-4, 1e-6
+
+
+def _f64_spectrogram(si, sq):
+    """The power spectrogram at float64 (torch.fft on the card, a
+    reference only): the plain version's frames and window, each
+    frame's complex FFT, fftshifted, in its (B, 512, 347) layout."""
+    from rtlsdr_wsprd_tpu_torch.ops import stft
+
+    x = torch.complex(si[:, :stft.SPAN].double(), sq[:, :stft.SPAN].double())
+    fr = x.unfold(-1, 512, 128) * torch.from_numpy(stft.HANN).to(
+        si.device).double()
+    z = torch.fft.fft(fr, dim=-1)
+    return torch.roll(z.real ** 2 + z.imag ** 2, 256, dims=-1).transpose(1, 2)
+
+
+def _candidate_order(ck, cp, sk, sp, B):
+    """The candidates find_candidates picks from the kernel's spectrogram
+    (ck, smoothed spectrum sk) against those from the plain version's
+    (cp, sp). A bin's peak status is a near-tie where it beats a
+    neighbour by at most twice the window's largest smoothed-spectrum
+    difference d, or where it or a neighbour crossed the -8 dB clamp;
+    candidates there are left out of the comparison (counted). The rest
+    must be the same bins, in the same order outside SNR near-ties: at a
+    rank where the bins differ, their plain SNRs within twice the
+    window's largest SNR difference (counted). Returns (candidates on
+    peak near-ties, ranks on SNR near-ties) or fails."""
+    from rtlsdr_wsprd_tpu_torch.ops.candidates import MIN_SNR, SNR_SCALING
+
+    sk, sp = sk.double().cpu().numpy(), sp.double().cpu().numpy()
+    clamp = np.float32(0.1 * MIN_SNR)
+    peak_ties = snr_ties = 0
+    for b in range(B):
+        d = float(np.abs(sk[b] - sp[b]).max())
+        margin = np.minimum(sp[b] - np.roll(sp[b], 1),
+                            sp[b] - np.roll(sp[b], -1))
+        unsure = np.abs(margin) <= 2 * d
+        flip = (sk[b] == clamp) != (sp[b] == clamp)
+        unsure |= flip | np.roll(flip, 1) | np.roll(flip, -1)
+        lists = []
+        for c in (ck, cp):
+            bins = c.bin_idx[b][c.valid[b]].cpu().numpy()
+            lists.append([int(j) for j in bins if not unsure[j]])
+            peak_ties += int(unsure[bins].sum())
+        got, want = lists
+        if sorted(got) != sorted(want):
+            fail(f"[search] window {b}: candidate bins from the kernel's "
+                 f"spectrogram {sorted(got)} != plain {sorted(want)} "
+                 f"outside near-ties")
+        snr_p = 10 * np.log10(sp[b]) - SNR_SCALING
+        dsnr = float(np.abs(10 * np.log10(sk[b]) - SNR_SCALING
+                            - snr_p).max())
+        for x, y in zip(got, want):
+            if x == y:
+                continue
+            if abs(snr_p[x] - snr_p[y]) > 2 * dsnr:
+                fail(f"[search] window {b}: candidate order differs at bins "
+                     f"{x} / {y}, plain SNRs {snr_p[x]:.6f} / "
+                     f"{snr_p[y]:.6f} dB, more than twice {dsnr:.3g} dB "
+                     f"apart")
+            snr_ties += 1
+    return peak_ties, snr_ties
+
+
+def _stft_case(dev, name, si, sq, md, label, opts):
+    """power_spectrogram on the card against power_spectrogram_plain on
+    (si, sq): every bin within STFT_RTOL and STFT_ATOL_OF_PEAK x its
+    window's plain peak, a window of zeros exactly 0; both against
+    float64; the candidates and the coarse rows each spectrogram gives;
+    the times of the kernel, the plain version and one torch.stft call
+    (cuFFT), and the bound. Returns (the row, the kernel's spectrogram)."""
+    from rtlsdr_wsprd_tpu_torch.ops import coarse, stft
+    from rtlsdr_wsprd_tpu_torch.ops.candidates import (
+        find_candidates,
+        smoothed_spectrum,
+    )
+
+    B = si.shape[0]
+    before = stft.power_spectrogram.launches
+    ps = stft.power_spectrogram(si, sq)
+    if stft.power_spectrogram.launches != before + 1:
+        fail(f"stft {label}: the call did not launch the kernel")
+    plain = stft.power_spectrogram_plain(si, sq)
+    peak = plain.amax(dim=(1, 2))
+    tol = STFT_RTOL * plain.abs() + STFT_ATOL_OF_PEAK * peak[:, None, None]
+    err = (ps - plain).abs()
+    if not bool((err <= tol).all()):
+        k = int(torch.argmax(err - tol))
+        fail(f"stft {label}: bin {float(ps.flatten()[k])} vs plain "
+             f"{float(plain.flatten()[k])} beyond rtol {STFT_RTOL}, atol "
+             f"{STFT_ATOL_OF_PEAK} x the window's peak")
+    zero = peak == 0
+    if bool((ps[zero] != 0).any()):
+        fail(f"stft {label}: a window of zeros gave nonzero power")
+    of_peak = err / peak.clamp(min=1e-30)[:, None, None]
+    exact = _f64_spectrogram(si, sq)
+    xpeak = exact.amax(dim=(1, 2)).clamp(min=1e-300)[:, None, None]
+    f64_err = {k: float(((v.double() - exact).abs() / xpeak).max())
+               for k, v in (("kernel", ps), ("plain", plain))}
+    del exact
+
+    # what stage A makes of each: the candidates, then the coarse rows
+    ck = find_candidates(ps, opts.fmin, opts.fmax)
+    cp = find_candidates(plain, opts.fmin, opts.fmax)
+    peak_ties, snr_ties = _candidate_order(
+        ck, cp, smoothed_spectrum(ps), smoothed_spectrum(plain), B)
+    vk, ak = coarse.coarse_rows(ps, md)
+    vp, ap = coarse.coarse_rows(plain, md)
+    top2 = torch.topk(coarse._sync_grid_plain(plain, md), 2, dim=-1).values
+    ctol = COARSE_RTOL * vp.abs() + COARSE_ATOL
+    if not bool(((vk - vp).abs() <= ctol).all()):
+        fail(f"stft {label}: a coarse row value moved beyond rtol "
+             f"{COARSE_RTOL}, atol {COARSE_ATOL}")
+    gap = top2[..., 0] - top2[..., 1]
+    near = (gap <= ctol) & ~((gap == 0) & (top2[..., 0] == 0))
+    if bool(((ak != ap) & ~near).any()):
+        b, r = (int(x) for x in torch.nonzero((ak != ap) & ~near)[0])
+        fail(f"stft {label}: window {b} row {r}: coarse index {int(ak[b, r])}"
+             f" from the kernel's spectrogram vs {int(ap[b, r])} from the "
+             f"plain one, with a gap of {float(gap[b, r])}")
+    rows_moved = int((ak != ap).sum())
+    del top2
+
+    ms = cuda_ms(lambda: stft.power_spectrogram(si, sq))
+    plain_ms = cuda_ms(lambda: stft.power_spectrogram_plain(si, sq))
+    # the library column: cuFFT's STFT of the complex windows (natural
+    # bin order, complex output), a yardstick the port never calls
+    x = torch.complex(si[:, :stft.SPAN], sq[:, :stft.SPAN])
+    w = torch.from_numpy(stft.HANN).to(dev)
+
+    def lib():
+        return torch.stft(x, n_fft=512, hop_length=128, window=w,
+                          center=False, return_complex=True)
+
+    z = lib()
+    lps = torch.roll(z.real ** 2 + z.imag ** 2, 256, dims=1)
+    lib_err = float(((lps - plain).abs()
+                     / peak.clamp(min=1e-30)[:, None, None]).max())
+    lib_ms = cuda_ms(lib)
+    del x, z, lps
+    row = dict(shape=f"B={B}, {label}", B=B, max_abs_err=float(err.max()),
+               max_err_of_peak=float(of_peak.max()), rtol=STFT_RTOL,
+               atol_of_peak=STFT_ATOL_OF_PEAK, zero_windows=int(zero.sum()),
+               kernel_f64_err_of_peak=f64_err["kernel"],
+               plain_f64_err_of_peak=f64_err["plain"],
+               candidates_on_peak_near_ties=peak_ties,
+               candidate_ranks_on_snr_near_ties=snr_ties,
+               coarse_near_tie_rows=int(near.sum()),
+               coarse_rows_moved=rows_moved, ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, library_err_of_peak=lib_err,
+               **_bounds(name, ms, stft_work(B), stft_direct_work(B)))
+    log(f"[search] stft B={B} {label}: max|kernel-plain| "
+        f"{row['max_abs_err']:.3g} ({row['max_err_of_peak']:.3g} of the "
+        f"window's peak; rtol {STFT_RTOL}, atol {STFT_ATOL_OF_PEAK} x peak), "
+        f"{row['zero_windows']} zero windows exactly 0; against float64 "
+        f"kernel {f64_err['kernel']:.3g}, plain {f64_err['plain']:.3g} of "
+        f"the peak; candidates: {peak_ties} on peak near-ties, {snr_ties} "
+        f"ranks on SNR near-ties, the rest equal in bins and order; coarse "
+        f"rows: {rows_moved} indices moved, on {row['coarse_near_tie_rows']}"
+        f" near-tie rows; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch.stft {lib_ms:.4f} ms ({lib_err:.3g} of the peak from the "
+        f"plain version), {_bounds_text(row)}")
+    return row, ps
 
 
 def _coarse_case(dev, name, ps, bins, md, label):
@@ -1109,8 +1301,8 @@ def _bounds(name, ms, work, direct) -> dict:
     bd = polyphase_bound(*work, "cuda", name)
     dd = polyphase_bound(*direct, "cuda", name)
     if bd["bound_ms"] > ms:
-        fail(f"a search kernel ran faster than its bound: {ms} ms against "
-             f"{bd['bound_ms']} ms")
+        fail(f"a stage A or B kernel ran faster than its bound: {ms} ms "
+             f"against {bd['bound_ms']} ms")
     return dict(bound_ms=bd["bound_ms"], bound_by=bd["bound_by"],
                 bound_share=bd["bound_ms"] / ms, bytes_ms=bd["bytes_ms"],
                 fp32_core_ms=bd["fp32_core_ms"], bytes=work[0],
@@ -1193,13 +1385,14 @@ def phase_search(dev, name, card, wi, wq):
     from rtlsdr_wsprd_tpu_torch.config import DecoderOptions
     from rtlsdr_wsprd_tpu_torch.ops import coarse, sync
     from rtlsdr_wsprd_tpu_torch.ops.candidates import find_candidates
-    from rtlsdr_wsprd_tpu_torch.ops.stft import power_spectrogram
+    from rtlsdr_wsprd_tpu_torch.ops.stft import power_spectrogram_plain
     from rtlsdr_wsprd_tpu_torch.parallel import multichannel as mc
     from rtlsdr_wsprd_tpu_torch.parallel.dryrun import launch_counts
 
     t_phase = time.perf_counter()
     opts = DecoderOptions()
-    rows = {"coarse_search": [], "tone_correlator": []}
+    rows = {"power_spectrogram": [], "coarse_search": [],
+            "tone_correlator": []}
     # stage A's launch shapes: the staged decode's batch; a dense-step
     # chunk of DENSE_WINDOWS windows whose last one is zero-padded, with
     # maxdrift 0 there as the dense step pads it; decode_window's one
@@ -1213,12 +1406,18 @@ def phase_search(dev, name, card, wi, wq):
         W: ((md_chunk, f"dense chunk, window {W - 1} zero-padded"),),
         1: ((torch.full((1,), opts.maxdrift, dtype=torch.int32, device=dev),
              "decode_window, maxdrift (1,) 4"),)}
+    stft_labels = {SEARCH_BATCH: "the staged decode's batch",
+                   W: f"dense chunk, window {W - 1} zero-padded",
+                   1: "decode_window"}
     for B, mds in cases.items():
         si = torch.from_numpy(wi[:B]).to(dev)
         sq = torch.from_numpy(wq[:B]).to(dev)
         if B == W:
             si[-1], sq[-1] = 0.0, 0.0
-        ps = power_spectrogram(si, sq)   # the decode's own layout
+        # the kernel's spectrogram, in the decode's own layout
+        row, ps = _stft_case(dev, name, si, sq, mds[0][0], stft_labels[B],
+                             opts)
+        rows["power_spectrogram"].append(row)
         bins = find_candidates(ps, opts.fmin, opts.fmax).bin_idx
         for md, label in mds:
             rows["coarse_search"].append(
@@ -1264,20 +1463,23 @@ def phase_search(dev, name, card, wi, wq):
     # the counts stay on the wrappers: reset them before they are
     # swapped out, read them after they are back
     reset_launches()
-    real = coarse.coarse_rows, sync._tone_mags_offsets
+    real = coarse.coarse_rows, sync._tone_mags_offsets, mc.power_spectrogram
     coarse.coarse_rows = coarse._row_max_plain
     sync._tone_mags_offsets = sync._tone_mags_offsets_plain
+    mc.power_spectrogram = power_spectrogram_plain
     try:
         plain = mc.decode_channels(wi[:n], wq[:n], opts, device_batch=n,
                                    device=dev, fec="host")
         torch.cuda.synchronize()
     finally:
-        coarse.coarse_rows, sync._tone_mags_offsets = real
+        (coarse.coarse_rows, sync._tone_mags_offsets,
+         mc.power_spectrogram) = real
     plain_counts = launch_counts()
-    if not (counts["coarse"] and counts["correlator"]):
-        fail(f"[search] the decode launched the search kernels no time: "
-             f"{counts}")
-    if plain_counts["coarse"] or plain_counts["correlator"]:
+    if not (counts["stft"] and counts["coarse"] and counts["correlator"]):
+        fail(f"[search] the decode launched the stage A and B kernels no "
+             f"time: {counts}")
+    if plain_counts["stft"] or plain_counts["coarse"] or \
+            plain_counts["correlator"]:
         fail(f"[search] the plain decode launched a kernel: {plain_counts}")
     moved = []
     for b, (g, w) in enumerate(zip(kern, plain)):
@@ -1297,8 +1499,9 @@ def phase_search(dev, name, card, wi, wq):
                               (x.sync, y.sync), (x.jitter, y.jitter)))
     n_spots = sum(len(ch) for ch in kern)
     log(f"[search] decode_channels on {n} windows (fec=host) through the "
-        f"kernels ({counts['coarse']} coarse, {counts['correlator']} "
-        f"correlator launches) and through the plain versions: {n_spots} "
+        f"kernels ({counts['stft']} stft, {counts['coarse']} coarse, "
+        f"{counts['correlator']} correlator launches) and through the "
+        f"plain versions: {n_spots} "
         f"spots, the same messages in every window, freq/snr/dt within "
         f"0.5e-6 MHz / 0.5 dB / 0.05 s; spots whose cycles, sync or jitter "
         f"differ (window, message, (cycles), (sync), (jitter)): {moved}")
@@ -2890,12 +3093,22 @@ def main() -> None:
                     **search_counts, **dense_counts, **paths,
                     **quality_counts}
     skipped = [p for p, c in search_paths.items()
-               if c.get("fano") and not (c["coarse"] and c["correlator"])]
+               if c.get("fano") and not (c["stft"] and c["coarse"]
+                                         and c["correlator"])]
     if skipped or not all(search_paths["decode (4 host + 4 hybrid runs)"]
                           .values()):
-        fail(f"paths that decoded without the search kernels: {skipped} "
-             f"{search_paths}")
+        fail(f"paths that decoded without the stage A and B kernels: "
+             f"{skipped} {search_paths}")
+    # stage A's two kernels sit at the same two call sites
+    # (_stage_a_packed, decode_window's _analyze_pass)
+    unequal = {p: (c["stft"], c["coarse"]) for p, c in search_paths.items()
+               if c["stft"] != c["coarse"]}
+    if unequal:
+        fail(f"paths whose stft and coarse launches differ: {unequal}")
     for kname, key, src, replaces, main_shape in (
+            ("power_spectrogram", "stft", "stft.cu",
+             "rtlsdr_wsprd_tpu/ops/stft.py:49",
+             f"B={SEARCH_BATCH}, the staged decode's batch"),
             ("coarse_search", "coarse", "coarse.cu",
              "rtlsdr_wsprd_tpu/ops/coarse.py:99",
              f"B={SEARCH_BATCH}, maxdrift 4"),
@@ -2904,8 +3117,8 @@ def main() -> None:
              f"{SEARCH_LANES} lanes (staged), L=43: soft symbols, 43 "
              "jitters")):
         mine = search_rows[kname]
-        # headline: the decode's own batch (stage A) and its 43-jitter
-        # soft symbols (stage B)
+        # headline: the decode's own batch (stage A's two kernels) and
+        # its 43-jitter soft symbols (stage B)
         main_row = next(r for r in mine if r["shape"] == main_shape)
         by_path = {p: c[key] for p, c in search_paths.items()}
         kernels.append({

@@ -119,12 +119,13 @@ def _dense_steps(wi, wq, dev: torch.device) -> list[list[np.ndarray]]:
 
 def launch_counts() -> dict:
     """This process's kernel launches so far, by kernel: the polyphase
-    routes, the Fano decoder, stage A's coarse grid and stage B's tone
-    correlator."""
-    from ..ops import coarse, sync
+    routes, the Fano decoder, stage A's power spectrogram and coarse
+    grid, and stage B's tone correlator."""
+    from ..ops import coarse, stft, sync
     from ..ops.fano import batched_fano
 
     return dict(polyphase_decimate.launches, fano=batched_fano.launches,
+                stft=stft.power_spectrogram.launches,
                 coarse=coarse.coarse_search.launches,
                 correlator=sync._tone_mags_offsets.launches)
 

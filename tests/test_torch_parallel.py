@@ -311,8 +311,8 @@ def test_dryrun_multichip_two_cpu_ranks():
     )
 
     assert dryrun_multichip(2, "cpu") == [{
-        "launches": {"tc": 0, "direct": 0, "fano": 0, "coarse": 0,
-                     "correlator": 0},
+        "launches": {"tc": 0, "direct": 0, "fano": 0, "stft": 0,
+                     "coarse": 0, "correlator": 0},
         "calls": {("stage1", "float32", 1, FRAMES1 * 80 + 560, FRAMES1): 1,
                   ("stage2", "float32", 1, FRAMES2 * 80 + 2320, FRAMES2): 1},
         "dense_windows_decoded": [2, 2],

@@ -206,6 +206,30 @@ def correlator_direct_work(G: int, L: int) -> tuple[int, int]:
     return nbytes, G * 162 * (L * 4 * 256 * 8 + 512 * 6)
 
 
+def stft_work(B: int) -> tuple[int, int]:
+    """(bytes, FLOPs) of one ``ops.stft.power_rows`` call on B windows
+    (csrc/stft.cu), the FFT form. Bytes: the 44,800 samples of each
+    window's two float32 planes that its 347 frames read, the 512-point
+    window and the (2, 256) twiddle table read once, the (B, 347, 512)
+    float32 powers written once. FLOPs a frame: 5 N log2 N for the
+    512-point complex FFT, 2 a sample for the window (a real times a
+    complex) and 3 a bin for the squared magnitude."""
+    nbytes = 2 * B * 44_800 * 4 + 512 * 4 + 2 * 256 * 4 + B * 347 * 512 * 4
+    per_frame = 5 * 512 * 9 + 2 * 512 + 3 * 512
+    return nbytes, B * 347 * per_frame
+
+
+def stft_direct_work(B: int) -> tuple[int, int]:
+    """(bytes, FLOPs) of the direct (matrix-product) form of
+    ``stft_work``'s call, ops/stft.py ``power_spectrogram_plain``: four
+    (347, 512) @ (512, 512) float32 products a window (2 FLOPs a
+    multiply-add), the two (512, 512) DFT matrices read beside the
+    planes, the window and the powers."""
+    nbytes = (2 * B * 44_800 * 4 + 512 * 4 + 2 * 512 * 512 * 4
+              + B * 347 * 512 * 4)
+    return nbytes, 4 * 2 * B * 347 * 512 * 512
+
+
 def polyphase_bound(nbytes: int, flops: int, route: str,
                     name: str) -> dict:
     """The card's least time for that work: bytes over the memory rate,

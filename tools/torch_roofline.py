@@ -29,12 +29,14 @@ and allocations costing nothing. That is the traffic of unfused ops, an
 upper bound on the HBM bytes. The hand-written kernels are called
 through ctypes, which the dispatcher never sees: their calls on the card
 are counted with the formulas chip_smoke.py's kernel rows use
-(``torch_measure.polyphase_work``, ``coarse_work`` for stage A's coarse
-grid, ``correlator_work`` for stage B's tone correlator: the work of
-the kernels' own forms). Beside each row, the same phase with the two
-search kernels counted in their direct form (``coarse_direct_work``,
-``correlator_direct_work``: every grid point's tone reads, every
-offset's 256-term dot products), for rows comparable across designs.
+(``torch_measure.polyphase_work``, ``stft_work`` for stage A's power
+spectrogram, ``coarse_work`` for its coarse grid, ``correlator_work``
+for stage B's tone correlator: the work of the kernels' own forms).
+Beside each row, the same phase with those three kernels counted in
+their direct form (``stft_direct_work``, the plain version's four DFT
+products; ``coarse_direct_work``, ``correlator_direct_work``: every
+grid point's tone reads, every offset's 256-term dot products), for
+rows comparable across designs.
 
 Usage: python tools/torch_roofline.py [B] [--device DEV]
 B windows (default 128); ``--device`` defaults to the CUDA card
@@ -68,7 +70,7 @@ from rtlsdr_wsprd_tpu_torch.frontend.filters import (  # noqa: E402
     R1,
     STAGE1_TAPS,
 )
-from rtlsdr_wsprd_tpu_torch.ops import coarse, sync  # noqa: E402
+from rtlsdr_wsprd_tpu_torch.ops import coarse, stft, sync  # noqa: E402
 from rtlsdr_wsprd_tpu_torch.ops.sync import jitter_offsets  # noqa: E402
 from rtlsdr_wsprd_tpu_torch.parallel import multichannel as mc  # noqa: E402
 from torch_measure import (  # noqa: E402
@@ -81,6 +83,8 @@ from torch_measure import (  # noqa: E402
     device_banner,
     make_batch,
     polyphase_work,
+    stft_direct_work,
+    stft_work,
 )
 
 # ops that move no data: allocations and metadata-only results (by
@@ -142,11 +146,12 @@ class WorkCounter(TorchDispatchMode):
 def counting():
     """A WorkCounter over the block, with the hand-written kernels'
     calls on the card counted by their formulas: the front end's and the
-    channelizer's polyphase calls, stage A's coarse grid and stage B's
-    tone correlator (on the CPU they run the plain versions, whose aten
-    ops the counter sees)."""
+    channelizer's polyphase calls, stage A's power spectrogram and
+    coarse grid and stage B's tone correlator (on the CPU they run the
+    plain versions, whose aten ops the counter sees)."""
     real = decimate.polyphase_decimate
     real_rows, real_corr = coarse.coarse_rows, sync.tone_correlator
+    real_stft = stft.power_rows
     counter = WorkCounter()
 
     def add(work, direct=None):
@@ -164,6 +169,10 @@ def counting():
                 coarse_direct_work(ps.shape[0], md))
         return real_rows(ps, maxdrift)
 
+    def noting_stft(i, q):
+        add(stft_work(i.shape[0]), stft_direct_work(i.shape[0]))
+        return real_stft(i, q)
+
     def noting_corr(wr, wi, freq, drift, offsets):
         add(correlator_work(wr.shape[0], len(offsets)),
             correlator_direct_work(wr.shape[0], len(offsets)))
@@ -180,6 +189,7 @@ def counting():
     decimate.polyphase_decimate = noting
     channelize.polyphase_decimate = noting
     coarse.coarse_rows, sync.tone_correlator = noting_rows, noting_corr
+    stft.power_rows = noting_stft
     try:
         with counter:
             yield counter
@@ -187,6 +197,7 @@ def counting():
         decimate.polyphase_decimate = real
         channelize.polyphase_decimate = real
         coarse.coarse_rows, sync.tone_correlator = real_rows, real_corr
+        stft.power_rows = real_stft
 
 
 def work(fn) -> WorkCounter:
@@ -332,8 +343,8 @@ def main() -> None:
         s = r["ms"] / 1e3
         pf = (f", {100 * r['flop_direct_form'] / s / peak_f:.2f}% of the "
               f"FP32 peak" if peak_f else "")
-        print(f"{r['phase']}: with the search kernels counted in their "
-              f"direct form {r['flop_direct_form'] / 1e9:.3f} GFLOP, "
+        print(f"{r['phase']}: with the stage A and B kernels counted in "
+              f"their direct form {r['flop_direct_form'] / 1e9:.3f} GFLOP, "
               f"{r['bytes_direct_form'] / 1e9:.3f} GB{pf}")
     syncs = B * 512 * 32 * 9 / (rows[0]["ms"] / 1e3)
     fe_msps = fe_C * fe_frames * R1 / (rows[2]["ms"] / 1e3) / 1e6
