@@ -9,9 +9,11 @@ power array ps[512][347] (wsprd/wsprd.c:496-553).
 ``power_spectrogram_plain``: as in the JAX package, the DFT is four
 float32 matmuls against constant cos/sin matrices whose column order
 folds in the fftshift, a leading batch dimension riding the same
-matmuls. For a CUDA tensor it launches ``csrc/stft.cu`` (a radix-8
-Stockham FFT a frame, the window applied on load, the fftshift folded
-into the write index; ``power_rows``) or raises: there is no fallback.
+matmuls. For a CUDA tensor it launches ``csrc/stft.cu`` (a 512-point
+FFT a warp with one shared exchange, the window applied on load, the
+fftshift folded into the write index; persistent blocks walking
+asynchronously staged 4-frame tiles; ``power_rows``) or raises: there
+is no fallback.
 Both replace ``rtlsdr_wsprd_tpu/ops/stft.py`` ``power_spectrogram``, an
 XLA program. The two sum in another order, so a bin's power may differ
 by float32 rounding; a window of zeros gives zeros in both.

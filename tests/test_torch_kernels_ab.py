@@ -14,7 +14,10 @@ PyTorch versions, on the CPU.
 - Each kernel's own source, compiled with g++ over a small emulation of
   the CUDA constructs it uses (threads of a block as std::threads meeting
   at a std::barrier, warp shuffles and __syncwarp through a per-warp
-  exchange), against the plain version: coarse at B=2 in its wide tiles
+  exchange, gridDim set by the launcher, and stft.cu's asynchronous
+  staging helpers as a memcpy done at once with no-op commit and wait;
+  tests/test_torch_stft_kernel.py runs that source), against the plain
+  version: coarse at B=2 in its wide tiles
   and at B=1 and B=4 (a zero-padded window at maxdrift 0) in its small
   ones, the correlator at G=3 and L = 1, 17, 33 and 43. The coarse
   source's runs of symbols are ``_fd_int``'s.
@@ -269,6 +272,7 @@ _SHIM = textwrap.dedent("""\
     #define __restrict__
     struct Dim3 { unsigned x, y; };
     thread_local Dim3 threadIdx, blockIdx, blockDim;
+    static Dim3 gridDim;  // set by a launcher before its blocks run
     static std::barrier<>* g_bar;
     static std::vector<std::barrier<>*> g_warp_bar;
     // a warp's shuffles alternate between two exchanges, so one barrier
@@ -304,6 +308,14 @@ _SHIM = textwrap.dedent("""\
       return exchange(v, int(threadIdx.x % 32) - delta);
     }
     inline void __syncwarp() { g_warp_bar[threadIdx.x / 32]->arrive_and_wait(); }
+    // an asynchronous 16-byte copy into shared memory, done at once: its
+    // commit groups have nothing left to wait for
+    inline void stage_copy16(void* smem, const void* gmem) {
+      std::memcpy(smem, gmem, 16);
+    }
+    inline void stage_commit() {}
+    template <int N>
+    void stage_wait() {}
     inline int __popc(unsigned v) { return __builtin_popcount(v); }
     inline float __fmul_rn(float a, float b) { return a * b; }
     struct alignas(8) float2 { float x, y; };

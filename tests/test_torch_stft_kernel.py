@@ -10,11 +10,16 @@ plain PyTorch version, on the CPU.
   in for by CPU tensors that report a CUDA device
   (tests/test_torch_kernels_ab.py's ``_card``).
 - The kernel's own source, compiled with g++ over
-  tests/test_torch_kernels_ab.py's emulation shim, against the plain
-  version within rtol 1e-4 and atol 1e-6 of each window's peak (the
-  tolerance the plain version is held to against the JAX package): one
-  window of windows3(), and two windows in padded rows whose second is
-  all zeros, which must give exactly 0.
+  tests/test_torch_kernels_ab.py's emulation shim (its asynchronous
+  staging copies done at once), against the plain version within rtol
+  1e-4 and atol 1e-6 of each window's peak (the tolerance the plain
+  version is held to against the JAX package), its grid chosen
+  by the test instead of the card's SMs: one window of windows3(); two
+  windows in padded rows whose second is all zeros, which must give
+  exactly 0; fewer persistent blocks than tiles, each walking many
+  (window, tile) pairs through its ring of staged tiles, bit for bit
+  the output of a block a tile; a dense-step chunk of 4 windows, the
+  last zero, on persistent blocks.
 - The kernel's twiddle table is bin 1 of the plain version's DFT
   matrices; the work formulas of tools/torch_measure.py.
 - On a card (marked ``cuda``; chip_smoke.py's ``search`` phase is the
@@ -44,15 +49,23 @@ RTOL, ATOL_OF_PEAK = 1e-4, 1e-6
 N = pstft.SIGNAL_SAMPLES
 
 _STFT_LAUNCHER = """\
-// the launch csrc/stft.cu's entry point makes, one block at a time
+// the launch csrc/stft.cu's entry point makes, one block at a time, its
+// grid chosen by ``grid`` (0: a block a tile) instead of the card's SMs
 extern "C" void emu_stft(const float* xi, const float* xq, long long si,
                          long long sq, const float* hann,
-                         const float* cos_sin, int n, float* out) {
-  static_assert(kSmemFloats * sizeof(float) <= sizeof(g_smem));
-  for (unsigned b = 0; b < unsigned(n) * kTiles; ++b)
+                         const float* cos_sin, int n, int grid, float* out) {
+  static_assert(kSmemBytes <= sizeof(g_smem));
+  const int total = n * kTiles;
+  gridDim = {unsigned(grid > 0 && grid < total ? grid : total), 1};
+  for (unsigned b = 0; b < gridDim.x; ++b)
     run_block(b, 0, kThreads, [=] {
-      stft_kernel(xi, xq, si, sq, hann, cos_sin, out);
+      stft_kernel(xi, xq, si, sq, hann, cos_sin, n, out);
     });
+}
+// (frames a tile, tiles a window)
+extern "C" void emu_tiles(int* out) {
+  out[0] = kTile;
+  out[1] = kTiles;
 }
 """
 
@@ -162,12 +175,14 @@ def emulated_stft(tmp_path_factory):
                  "float4* const stft_smem = "
                  "reinterpret_cast<float4*>(g_smem);",
                  _STFT_LAUNCHER)
-    vp, ll = ctypes.c_void_p, ctypes.c_longlong
-    lib.emu_stft.argtypes = [vp, vp, ll, ll, vp, vp, ctypes.c_int, vp]
+    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.emu_stft.argtypes = [vp, vp, ll, ll, vp, vp, ci, ci, vp]
+    lib.emu_tiles.argtypes = [vp]
 
-    def run(si: torch.Tensor, sq: torch.Tensor) -> np.ndarray:
+    def run(si: torch.Tensor, sq: torch.Tensor, grid: int = 0) -> np.ndarray:
         """The kernel on (B, >= 44,800) planes as the wrapper passes them
-        (row strides in floats): (B, 512, 347), the wrapper's layout."""
+        (row strides in floats), on ``grid`` persistent blocks (0: a
+        block a tile): (B, 512, 347), the wrapper's layout."""
         pstft._check_planes(si, sq)
         B = si.shape[0]
         cos_sin = np.ascontiguousarray(pstft.TWIDDLE)
@@ -175,19 +190,37 @@ def emulated_stft(tmp_path_factory):
         out = np.full((B, pstft.BLOCKS, 512), np.nan, np.float32)
         lib.emu_stft(si.data_ptr(), sq.data_ptr(), si.stride(0),
                      sq.stride(0), hann.ctypes.data, cos_sin.ctypes.data, B,
-                     out.ctypes.data)
+                     grid, out.ctypes.data)
         return out.transpose(0, 2, 1)
 
+    tiles = np.zeros(2, np.int32)
+    lib.emu_tiles(tiles.ctypes.data)
+    run.tile, run.tiles = (int(t) for t in tiles)
     return run
 
 
 def test_stft_source_emulated_one_window(emulated_stft):
     """csrc/stft.cu run on the host on one window of windows3() (two
-    signals), as decode_window launches it: within rtol 1e-4 and atol
-    1e-6 of the peak of the plain version."""
+    signals), as decode_window launches it (a block a tile, 4 frames a
+    tile, a frame a warp): within rtol 1e-4 and atol 1e-6 of the peak
+    of the plain version."""
+    assert (emulated_stft.tile, emulated_stft.tiles) == (4, 87)
     wi, wq = windows3()
     si, sq = _t(wi[:1]), _t(wq[:1])
     assert_matches_plain(emulated_stft(si, sq), si, sq)
+
+
+def _padded_pair():
+    """Two windows in rows of a padded plane (row stride 45,004 floats):
+    windows3()'s second, then all zeros as the dense step pads its
+    chunk; NaN past each row's 44,800 samples."""
+    wi, wq = windows3()
+    pi = torch.full((2, N + 4), float("nan"))
+    pq = torch.full((2, N + 4), float("nan"))
+    pi[:, :N], pq[:, :N] = 0.0, 0.0
+    pi[0, :N], pq[0, :N] = _t(wi[1]), _t(wq[1])
+    pi[:, pstft.SPAN:], pq[:, pstft.SPAN:] = float("nan"), float("nan")
+    return pi[:, :N], pq[:, :N]
 
 
 def test_stft_source_emulated_zero_window(emulated_stft):
@@ -196,17 +229,40 @@ def test_stft_source_emulated_zero_window(emulated_stft):
     chunk: the first within the tolerance of the plain version, the
     second exactly 0; the bytes past each row's 44,800 samples are never
     read (NaN there changes nothing)."""
-    wi, wq = windows3()
-    pi = torch.full((2, N + 4), float("nan"))
-    pq = torch.full((2, N + 4), float("nan"))
-    pi[:, :N], pq[:, :N] = 0.0, 0.0
-    pi[0, :N], pq[0, :N] = _t(wi[1]), _t(wq[1])
-    pi[:, pstft.SPAN:], pq[:, pstft.SPAN:] = float("nan"), float("nan")
-    si, sq = pi[:, :N], pq[:, :N]
+    si, sq = _padded_pair()
     got = emulated_stft(si, sq)
     assert np.isfinite(got).all()
     assert (got[1] == 0).all()
     assert_matches_plain(got, si[:, :pstft.SPAN], sq[:, :pstft.SPAN])
+
+
+@pytest.mark.parametrize("grid", [1, 5, 13])
+def test_stft_source_emulated_persistent_walk(emulated_stft, grid):
+    """csrc/stft.cu on fewer persistent blocks than tiles (the padded
+    pair's 174 tiles on 1, 5 or 13 blocks), so each block walks many
+    (window, tile) pairs, across the window boundary, through both
+    slots of its ring of staged tiles: bit for bit the output of a block
+    a tile, within the tolerance of the plain version, the zero window
+    exactly 0."""
+    si, sq = _padded_pair()
+    got = emulated_stft(si, sq, grid=grid)
+    np.testing.assert_array_equal(got, emulated_stft(si, sq))
+    assert (got[1] == 0).all()
+    assert_matches_plain(got, si[:, :pstft.SPAN], sq[:, :pstft.SPAN])
+
+
+def test_stft_source_emulated_dense_chunk(emulated_stft):
+    """csrc/stft.cu on a dense-step chunk as the dense step launches it:
+    4 windows of windows3() (the third noise only), the last zero-padded,
+    on 7 persistent blocks: within the tolerance of the plain version,
+    the padded window exactly 0."""
+    wi, wq = windows3()
+    si = torch.zeros((4, N))
+    sq = torch.zeros((4, N))
+    si[:3], sq[:3] = _t(wi), _t(wq)
+    got = emulated_stft(si, sq, grid=7)
+    assert (got[3] == 0).all()
+    assert_matches_plain(got, si, sq)
 
 
 def test_twiddle_table_is_dft_bin_one():

@@ -42,7 +42,10 @@ Usage: python tools/torch_roofline.py [B] [--device DEV]
 B windows (default 128); ``--device`` defaults to the CUDA card
 (``cpu`` runs the plain PyTorch versions, timed by the host clock, with
 no shares of a peak). Prints the table beside the card's name and power
-limit, then one JSON line.
+limit, then one JSON line. On the card it also traces one stage A call
+under torch.profiler: the device ms of its kernels, of the STFT and
+coarse kernels, of ``smoothed_spectrum``'s ``ps.sum(dim=-1)`` and of the
+rest of its torch ops (``stage_a_profile`` in the JSON line).
 """
 
 from __future__ import annotations
@@ -222,6 +225,38 @@ def stage_a_fn(si, sq, md, options: DecoderOptions):
                                       fmax=options.fmax)
 
 
+def stage_a_profile(fn, B: int) -> dict:
+    """One stage A call (``fn``, on the card, after a warm one) under
+    torch.profiler: the device ms of every kernel it ran, by name; of
+    ``smoothed_spectrum``'s ``ps.sum(dim=-1)`` (``aten::sum`` on the
+    (B, 512, 347) spectrogram); of the STFT and coarse kernels; and of
+    the rest of stage A's torch ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels, ps_sum = {}, 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kernels[e.name] = (kernels.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+        elif (e.name == "aten::sum" and e.input_shapes
+              and list(e.input_shapes[0]) == [B, 512, stft.BLOCKS]):
+            ps_sum += e.device_time_total / 1e3
+    total = sum(kernels.values())
+    ours = {k: sum(v for n, v in kernels.items() if k in n)
+            for k in ("stft_kernel", "coarse_rows_kernel")}
+    return dict(device_ms=total, stft_ms=ours["stft_kernel"],
+                coarse_ms=ours["coarse_rows_kernel"], ps_sum_ms=ps_sum,
+                rest_ms=total - sum(ours.values()) - ps_sum,
+                kernels=sorted(kernels.items(), key=lambda kv: -kv[1]))
+
+
 def stage_b_fn(si, sq, options: DecoderOptions):
     """Stage B on one lane a window (the JAX tool's lanes)."""
     dev = si.device
@@ -355,11 +390,21 @@ def main() -> None:
           f"({fe_msps / 2.4:,.1f} realtime channels) ({banner})")
     print(f"channelizer sustained: {caps:,.2f} realtime captures x {K} "
           f"dials = {K * caps:,.1f} decoded dials a card ({banner})")
-    print(json.dumps({"metric": "roofline", "B": B, "device": banner,
-                      "streaming_gbps": {"read": rd, "read_write": rw},
-                      "rows": rows, "candidate_syncs_per_s": syncs,
-                      "frontend_msps": fe_msps,
-                      "channelizer_dials": K * caps}))
+    line = {"metric": "roofline", "B": B, "device": banner,
+            "streaming_gbps": {"read": rd, "read_write": rw},
+            "rows": rows, "candidate_syncs_per_s": syncs,
+            "frontend_msps": fe_msps, "channelizer_dials": K * caps}
+    if dev.type == "cuda":
+        prof = stage_a_profile(phases[0][1], B)
+        print(f"stage A under torch.profiler, one call at B={B}: device "
+              f"{prof['device_ms']:.4f} ms = stft {prof['stft_ms']:.4f} + "
+              f"coarse {prof['coarse_ms']:.4f} + smoothed_spectrum's "
+              f"ps.sum(dim=-1) {prof['ps_sum_ms']:.4f} + the rest "
+              f"{prof['rest_ms']:.4f} ({banner})")
+        for name, ms in prof["kernels"][:12]:
+            print(f"  {ms:9.4f} ms  {name[:100]}")
+        line["stage_a_profile"] = prof
+    print(json.dumps(line))
 
 
 if __name__ == "__main__":
