@@ -1,0 +1,8 @@
+"""The card: share of the traced window in which no kernel, copy or set
+runs on it, in percent."""
+
+
+def read(trace):
+    if trace.window_s <= 0.0:
+        return None
+    return 100.0 * (1.0 - trace.busy_s() / trace.window_s)

@@ -1,0 +1,8 @@
+"""The kernel behind ``polyphase_tc``: its share of its roofline, the least
+time of every launch in the traced window (work.py's frozen counts at
+the launch's shapes, against the card's published peaks) over the
+kernel's device time, in percent."""
+
+
+def read(trace):
+    return trace.roofline_pct("polyphase_tc")

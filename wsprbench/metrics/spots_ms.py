@@ -1,0 +1,11 @@
+"""Spot assembly (_emit_channel_spots, resolve_type3_spots): self time of the program's ``spots``
+range(s), summed over threads, in ms a channel-window completed."""
+
+RANGES = ("spots",)
+
+
+def read(trace):
+    t = trace.self_times()
+    if trace.windows == 0 or not any(r in t for r in RANGES):
+        return None
+    return 1e3 * sum(t.get(r, 0.0) for r in RANGES) / trace.windows
