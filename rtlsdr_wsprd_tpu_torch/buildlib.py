@@ -18,6 +18,8 @@ import tempfile
 import threading
 from pathlib import Path
 
+from . import tracing
+
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 REPO_ROOT = Path(__file__).resolve().parent.parent
 
@@ -32,19 +34,26 @@ def nvcc_path() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
+def library_path(name: str, compiler: str, sources: list[Path],
+                 flags: list[str]) -> Path:
+    """Where ``build_shared`` puts this library:
+    ``_build/lib<name>-<hash of the sources and flags>.so``."""
+    h = hashlib.sha256()
+    for src in sources:
+        h.update(Path(src).read_bytes())
+    h.update(" ".join([compiler, *flags]).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
 def build_shared(name: str, compiler: str, sources: list[Path],
                  flags: list[str], timeout: float = 600.0) -> Path:
-    """Compile ``sources`` with ``compiler`` into ``_build/lib<name>-<hash>.so``
+    """Compile ``sources`` with ``compiler`` into ``library_path(...)``
     unless that file exists; returns its path. Raises if the compiler is
     missing or fails."""
     exe = shutil.which(compiler)
     if exe is None:
         raise RuntimeError(f"{compiler} not found: cannot build lib{name}")
-    h = hashlib.sha256()
-    for src in sources:
-        h.update(Path(src).read_bytes())
-    h.update(" ".join([compiler, *flags]).encode())
-    out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    out = library_path(name, compiler, sources, flags)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -65,6 +74,17 @@ def build_shared(name: str, compiler: str, sources: list[Path],
     return out
 
 
+def load_library(name: str, compiler: str, sources: list[Path],
+                 flags: list[str]) -> ctypes.CDLL:
+    """``build_shared``, then load the library; recorded as a
+    ``kernel_load`` span (tracing.py), ``built`` 1 where it compiled and
+    0 where it loaded from ``_build/``."""
+    built = int(not library_path(name, compiler, sources, flags).exists())
+    with tracing.span("kernel_load", built=built):
+        return ctypes.CDLL(str(build_shared(name, compiler, sources,
+                                            flags)))
+
+
 def lazy_cuda_library(name: str, sources: list[Path], flags: list[str],
                       bind):
     """A function that returns the ctypes library built from ``sources``
@@ -79,8 +99,8 @@ def lazy_cuda_library(name: str, sources: list[Path], flags: list[str],
         if lib is None:
             with lock:
                 if lib is None:
-                    loaded = ctypes.CDLL(str(build_shared(
-                        name, nvcc_path(), sources, flags)))
+                    loaded = load_library(name, nvcc_path(), sources,
+                                          flags)
                     bind(loaded)
                     lib = loaded
         return lib

@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 from .filters import (
     R1,
@@ -158,15 +159,20 @@ def _fused_frontend_step(rawI: torch.Tensor, rawQ: torch.Tensor,
     rawI/rawQ: uint8|float32 (C, n_mid*R1 + tail1) device chunk;
     m2I/m2Q: float32 (C, m) device-resident mid-rate carry. Returns
     (outI, outQ, new m2I, new m2Q); the 30 ksps intermediate never
-    leaves the device."""
-    tail2 = STAGE2_TAPS - R2
-    mi, mq = polyphase_decimate(rawI, rawQ, STAGE1, n_mid)
-    midI = torch.cat([m2I, mi], dim=1)
-    midQ = torch.cat([m2Q, mq], dim=1)
-    n_out = (midI.shape[1] - tail2) // R2
-    need2 = n_out * R2
-    oi, oq = polyphase_decimate(midI, midQ, STAGE2, n_out)
-    return oi, oq, midI[:, need2:].contiguous(), midQ[:, need2:].contiguous()
+    leaves the device. Recorded as a ``frontend_step`` span (tracing.py)
+    of ``channels`` rows and ``frames`` stage-1 frames: the host's side
+    of the step, its launches."""
+    with tracing.span("frontend_step", channels=int(rawI.shape[0]),
+                      frames=int(n_mid)):
+        tail2 = STAGE2_TAPS - R2
+        mi, mq = polyphase_decimate(rawI, rawQ, STAGE1, n_mid)
+        midI = torch.cat([m2I, mi], dim=1)
+        midQ = torch.cat([m2Q, mq], dim=1)
+        n_out = (midI.shape[1] - tail2) // R2
+        need2 = n_out * R2
+        oi, oq = polyphase_decimate(midI, midQ, STAGE2, n_out)
+        return (oi, oq, midI[:, need2:].contiguous(),
+                midQ[:, need2:].contiguous())
 
 
 class BatchedStreamingDecimator:

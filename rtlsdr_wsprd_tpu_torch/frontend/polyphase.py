@@ -40,7 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..buildlib import build_shared, nvcc_path
+from ..buildlib import load_library, nvcc_path
 from ..device import const, derived_const
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -75,7 +75,7 @@ def _load_kernel(route: str):
     lib = _libs.get(route)
     if lib is None:
         name, src, fn, argtypes = _KERNELS[route]
-        lib = ctypes.CDLL(str(build_shared(name, nvcc_path(), [src], NVCC_FLAGS)))
+        lib = load_library(name, nvcc_path(), [src], NVCC_FLAGS)
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = _ci
         _libs[route] = lib

@@ -21,7 +21,7 @@ import threading
 
 import numpy as np
 
-from .buildlib import REPO_ROOT, build_shared
+from .buildlib import REPO_ROOT, load_library
 
 _SOURCE = REPO_ROOT / "native" / "hostdsp.cpp"
 _ABI = 4  # wspr_hostdsp_abi() of the source this binding was written for
@@ -42,9 +42,8 @@ def _load():
     with _lock:
         if _lib is not None:
             return _lib
-        path = build_shared("hostdsp", "g++", [_SOURCE],
-                            ["-O3", "-std=c++17", "-fPIC", "-shared"])
-        lib = ctypes.CDLL(str(path))
+        lib = load_library("hostdsp", "g++", [_SOURCE],
+                           ["-O3", "-std=c++17", "-fPIC", "-shared"])
         lib.wspr_hostdsp_abi.restype = ctypes.c_int
         abi = int(lib.wspr_hostdsp_abi())
         if abi != _ABI:

@@ -44,7 +44,7 @@ from dataclasses import asdict, dataclass
 import numpy as np
 import torch
 
-from .. import native
+from .. import native, tracing
 from ..config import NBITS
 from ..device import resolve_device
 from .fano_hybrid import DEVICE_MAXCYCLES as DEFAULT_DEVICE_MAXCYCLES
@@ -192,18 +192,21 @@ def _calibrate(device) -> FecCalibration:
     dev = _cuda_device(device)
     if dev is None:
         return FecCalibration("host", budget, -1.0, -1.0, -1.0, "default")
-    clean_ms, timeout_ms = measure_native_fano_ms()
-    cyc_ms = measure_device_fano_cycle_ms(device=dev)
-    # the cheapest useful device call (the smallest bucket) against one
-    # native full-budget timeout; the 2x margin prefers hybrid near the
-    # boundary, since a call's fixed cost amortizes over real batches
-    min_call_ms = _BUDGET_BUCKETS[0] * cyc_ms
-    if min_call_ms > 2.0 * timeout_ms:
-        mode = "host"
-    else:
-        mode = "hybrid"
-        if not env_budget:
-            budget = _bucket_budget(timeout_ms / max(cyc_ms, 1e-9))
+    with tracing.span("fec_calibrate") as sp:
+        clean_ms, timeout_ms = measure_native_fano_ms()
+        cyc_ms = measure_device_fano_cycle_ms(device=dev)
+        # the cheapest useful device call (the smallest bucket) against
+        # one native full-budget timeout; the 2x margin prefers hybrid
+        # near the boundary, since a call's fixed cost amortizes over
+        # real batches
+        min_call_ms = _BUDGET_BUCKETS[0] * cyc_ms
+        if min_call_ms > 2.0 * timeout_ms:
+            mode = "host"
+        else:
+            mode = "hybrid"
+            if not env_budget:
+                budget = _bucket_budget(timeout_ms / max(cyc_ms, 1e-9))
+        sp.add(budget=budget, hybrid=mode == "hybrid")
     cal = FecCalibration(mode, budget, round(cyc_ms, 6),
                          round(clean_ms, 4), round(timeout_ms, 3),
                          "measured")

@@ -42,7 +42,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..buildlib import build_shared, nvcc_path
+from ..buildlib import load_library, nvcc_path
 from ..config import NBITS
 from ..device import derived_const, resolve_device
 from ..utils.channel import POLY1, POLY2
@@ -114,8 +114,8 @@ def _load_kernel():
     if _lib is None:
         with _lock:
             if _lib is None:
-                lib = ctypes.CDLL(str(build_shared(
-                    "fano", nvcc_path(), [_SOURCE], NVCC_FLAGS)))
+                lib = load_library("fano", nvcc_path(), [_SOURCE],
+                                   NVCC_FLAGS)
                 lib.fano_decode_lanes.argtypes = _ARGTYPES
                 lib.fano_decode_lanes.restype = _ci
                 _lib = lib

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .. import native
+from .. import native, tracing
 from ..config import NBITS
 from .fano import METTAB
 
@@ -58,12 +58,17 @@ def host_finish(deint_symbols: np.ndarray, success: np.ndarray,
                 pending: np.ndarray, delta: int, maxcycles: int):
     """Re-run the ``pending`` lanes on the native host decoder at the
     full budget ``maxcycles``; returns updated (success, data, cycles)
-    arrays (copies where modified)."""
+    arrays (copies where modified). Recorded as a ``host_finish`` span
+    (tracing.py): ``stragglers`` lanes re-run, ``decoded`` of them
+    successes, ``cycles`` the searches' cycles in all."""
     idx = np.nonzero(pending)[0]
     if idx.size == 0:
         return success, data, cycles
-    ok, d, c, _m, _np = native.fano_decode_many(
-        deint_symbols[idx], METTAB, delta=delta, maxcycles=maxcycles)
+    with tracing.span("host_finish", stragglers=int(idx.size)) as sp:
+        ok, d, c, _m, _np = native.fano_decode_many(
+            deint_symbols[idx], METTAB, delta=delta, maxcycles=maxcycles)
+        sp.add(decoded=np.count_nonzero(ok),
+               cycles=np.asarray(c, np.int64).sum())
     success = success.copy()
     data = data.copy()
     cycles = cycles.copy()

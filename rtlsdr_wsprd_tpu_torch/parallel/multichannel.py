@@ -47,13 +47,22 @@ on B give every window the same arithmetic however the batch is
 sharded. Each shard of the mesh runs on its device from its own host
 thread.
 
-Host ranges are labelled for ``torch.profiler`` (``record_function``):
-``stage_a`` (launch and fetch), ``stage_b_launch``, ``stage_b_wait``
-(waiting for a bucket's results), ``fec_host`` (host mode's FEC),
+Host ranges are spans of the port's record (tracing.py) that also label
+a ``torch.profiler`` run (``record_function``, bound to
+``tracing.labelled``): ``stage_a`` (launch and fetch),
+``stage_b_launch``, ``stage_b_wait`` (waiting for a bucket's results),
+``fec_host`` (host mode's FEC),
 ``fec_device`` (one device Fano call of hybrid mode, its upload and
 fetch included), ``fec_host_finish`` (hybrid mode's stragglers),
 ``spots`` and ``subtract``; the dense path adds ``dense_step`` (one
-pass's device step over all shards, fetch included). ``_LOG`` also
+pass's device step over all shards, fetch included). The record also
+holds spans that label no profiler run: ``quantize`` and ``upload`` (a
+host batch's trip to the card), ``await_batch`` (the pipelined drivers'
+caller waiting for the oldest batch), ``fano_round`` events (each
+device Fano call's attempts and the stragglers it hands to the host)
+and, elsewhere, ``host_finish``, ``frontend_step``, ``fec_calibrate``
+and ``kernel_load``; the pipelined drivers number each batch
+(``tracing.batch``) on the caller and on the worker. ``_LOG`` also
 emits the JAX package's phase marks at DEBUG, with its text and
 integers (``stage A done``, ``stage B:``, ``stage B fetch done``,
 ``fano rounds done``, ``host-finishing``, ``subtracting``,
@@ -90,9 +99,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
-from .. import native
+from .. import native, tracing
 from ..config import DT, MAX_CANDIDATES, MAX_UNIQUES, SIGNAL_SAMPLES
 from ..config import DecoderOptions
 from ..device import const, resolve_device, resolve_devices
@@ -111,6 +119,10 @@ from .mesh import ChannelSharding, _shard_bounds, channel_sharding
 
 _PERM = np.asarray(INTERLEAVE_PERM, np.int64)
 _LOG = logging.getLogger("rtlsdr_wsprd_tpu_torch.multichannel")
+# the decode's layer ranges: spans of the record (tracing.py) that also
+# label a torch.profiler run; a benchmark's tracer may take this name's
+# place, so every other span of the module is ``tracing.span``
+record_function = tracing.labelled
 
 LANE_BUCKETS = (16, 64, 256, 512, 1024)  # stage-B lane bucket sizes
 FANO_BATCH = 512  # attempts per device Fano call (hybrid FEC)
@@ -268,7 +280,8 @@ def _fano_rounds_host_prefetch(gate: np.ndarray, pre_j: np.ndarray,
     Returns {lane: (jitter idx, data bytes, cycles)}."""
     J, G = gate.shape
     M = pre_j.shape[1]
-    t0 = time.perf_counter()
+    debug = _LOG.isEnabledFor(logging.DEBUG)
+    t0 = time.perf_counter() if debug else 0.0
     decoded: dict[int, tuple[int, bytes, int]] = {}
     deferred: list[tuple[int, int]] = []  # (lane, schedule pos to resume)
 
@@ -305,9 +318,10 @@ def _fano_rounds_host_prefetch(gate: np.ndarray, pre_j: np.ndarray,
         for r in _map_lanes(one_deferred, list(enumerate(deferred))):
             if r is not None:
                 decoded[r[0]] = r[1]
-    _LOG.debug("fano host: %d lanes (%d deferred), %d decodes, %.0f ms",
-               G, len(deferred), len(decoded),
-               1e3 * (time.perf_counter() - t0))
+    if debug:
+        _LOG.debug("fano host: %d lanes (%d deferred), %d decodes, %.0f ms",
+                   G, len(deferred), len(decoded),
+                   1e3 * (time.perf_counter() - t0))
     return decoded
 
 
@@ -348,6 +362,7 @@ def _fano_rounds(gate: np.ndarray, deint: np.ndarray, delta: int,
     pending = {g: [int(j) for j in np.nonzero(gate[:, g])[0]]
                for g in range(G) if gate[:, g].any()}
     decoded: dict[int, tuple[int, bytes, int]] = {}
+    debug = _LOG.isEnabledFor(logging.DEBUG)
     while pending:
         batch: list[tuple[int, int]] = []  # (lane, jitter)
         for g in sorted(pending):
@@ -362,13 +377,15 @@ def _fano_rounds(gate: np.ndarray, deint: np.ndarray, delta: int,
             syms[a] = deint[j, g]
         valid = np.zeros(FANO_BATCH, bool)
         valid[:n] = True
-        t_dev = time.perf_counter()
+        if debug:
+            t_dev = time.perf_counter()
         with record_function("fec_device"):
             out = _fano_batch_packed(_to_device(syms, device),
                                      _to_device(valid, device), delta=delta,
                                      maxcycles=dev_maxcycles)
             succ, data, cycles = _HostCopy(out).get()
-        t_host = time.perf_counter()
+        if debug:
+            t_host = time.perf_counter()
         pend = pending_mask(succ, cycles, dev_maxcycles, full_maxcycles)
         pend &= valid
         if pend.any():
@@ -382,16 +399,20 @@ def _fano_rounds(gate: np.ndarray, deint: np.ndarray, delta: int,
             for a, (g, j) in enumerate(batch):
                 if pend[a] and first_succ.get(g, FANO_BATCH) < a:
                     pend[a] = False
-        if pend.any():
-            _LOG.debug("host-finishing %d straggler lanes", int(pend.sum()))
+        # the attempts the device hands to the host
+        stragglers = int(pend.sum())
+        tracing.event("fano_round", attempts=n, stragglers=stragglers)
+        if stragglers:
+            _LOG.debug("host-finishing %d straggler lanes", stragglers)
             with record_function("fec_host_finish"):
                 succ, data, cycles = host_finish(
                     syms, succ, data, cycles, pend, delta, full_maxcycles)
-        _LOG.debug(
-            "fano round: %d attempts over %d lanes, device %.0f ms, "
-            "host-finish %d stragglers %.0f ms", n, len(pending),
-            1e3 * (t_host - t_dev), int(pend.sum()),
-            1e3 * (time.perf_counter() - t_host))
+        if debug:
+            _LOG.debug(
+                "fano round: %d attempts over %d lanes, device %.0f ms, "
+                "host-finish %d stragglers %.0f ms", n, len(pending),
+                1e3 * (t_host - t_dev), stragglers,
+                1e3 * (time.perf_counter() - t_host))
         for a, (g, j) in enumerate(batch):
             if g not in pending:
                 continue  # an earlier attempt of this call decoded g
@@ -599,9 +620,12 @@ def _finish_stragglers(out: ChannelDecode, options: DecoderOptions,
     cyc = out.cycles.reshape(-1)
     pend = pending_mask(succ, cyc, dev_mc, options.maxcycles)
     pend &= out.sel_valid.reshape(-1)
-    if not pend.any():
+    stragglers = int(pend.sum())
+    tracing.event("fano_round", attempts=int(out.sel_valid.sum()),
+                  stragglers=stragglers)
+    if not stragglers:
         return out
-    _LOG.debug("host-finishing %d straggler lanes", int(pend.sum()))
+    _LOG.debug("host-finishing %d straggler lanes", stragglers)
     with record_function("fec_host_finish"):
         succ, data, cyc = host_finish(
             out.deint.reshape(-1, 162), succ, out.data.reshape(-1, 11), cyc,
@@ -703,24 +727,30 @@ class _DeviceWindows:
         B = cur_i.shape[0]
         self.B = B
         self.n_pad = -(-B // device_batch) * device_batch
+        shape = (self.n_pad, cur_i.shape[1])
         if transfer_dtype == "float32":
-            planes = []
-            for cur in (cur_i, cur_q):
-                host = np.zeros((self.n_pad, cur.shape[1]), np.float32)
-                host[:B] = cur
-                planes.append(_to_device(host, self.device))
+            with tracing.span("upload", bytes=2 * shape[0] * shape[1] * 4):
+                planes = []
+                for cur in (cur_i, cur_q):
+                    host = np.zeros(shape, np.float32)
+                    host[:B] = cur
+                    planes.append(_to_device(host, self.device))
             self._di, self._dq = planes
             return
         dt, scale = _SCALES[transfer_dtype]
         inv = float(np.float32(1.0) / scale)  # the float32 value exactly
-        planes = []
-        for cur in (cur_i, cur_q):
-            host = np.zeros((self.n_pad, cur.shape[1]), dt)
-            native.quantize_into(np.ascontiguousarray(cur, np.float32),
-                                 host[:B], scale)
-            planes.append(_to_device(host, self.device).to(torch.float32)
-                          * inv)
-        self._di, self._dq = planes
+        with tracing.span("quantize", windows=B,
+                          bytes_in=2 * B * shape[1] * 4):
+            hosts = []
+            for cur in (cur_i, cur_q):
+                host = np.zeros(shape, dt)
+                native.quantize_into(np.ascontiguousarray(cur, np.float32),
+                                     host[:B], scale)
+                hosts.append(host)
+        with tracing.span("upload", bytes=2 * hosts[0].nbytes):
+            self._di, self._dq = (
+                _to_device(h, self.device).to(torch.float32) * inv
+                for h in hosts)
 
     @classmethod
     def from_device(cls, di: torch.Tensor, dq: torch.Tensor,
@@ -1319,39 +1349,53 @@ def decode_channels_pipelined_multidevice(
             on_error(exc)
             return [[] for _ in range(n_ch)]
 
-    def _merge(shard_futs):
+    def _merge(seq, shard_futs):
         out = []
-        for fut, n_ch in shard_futs:
-            out.extend(_shard_result(fut, n_ch))
+        with tracing.batch(seq), tracing.span(
+                "await_batch", windows=sum(n for _, n in shard_futs)):
+            for fut, n_ch in shard_futs:
+                out.extend(_shard_result(fut, n_ch))
         return resolve_type3_spots(out, ht)
 
-    def _submit(w):
-        return (ex.submit(decode_channels, None, None, options, ht,
-                          windows=w, fec=fec), w.B)
+    def _decode(seq, w):
+        with tracing.batch(seq):
+            return decode_channels(None, None, options, ht, windows=w,
+                                   fec=fec)
+
+    def _submit(seq, w):
+        return ex.submit(_decode, seq, w), w.B
 
     n_dev = (len(devices) if devices is not None
              else torch.cuda.device_count())
+    items = iter(batches)
     with ThreadPoolExecutor(depth * max(n_dev, 1)) as ex:
-        futs: list[list[tuple]] = []
-        for item in batches:
-            if isinstance(item, _DeviceWindows):
-                item = [item]
-            if (isinstance(item, (list, tuple)) and item
-                    and isinstance(item[0], _DeviceWindows)):
-                futs.append([_submit(w) for w in item])
-            else:
-                wi, wq = item
-                devs = devs or resolve_devices(devices)
-                futs.append([_submit(prepare_windows(
-                    wi[s0:s1], wq[s0:s1],
-                    device_batch=min(device_batch, s1 - s0),
-                    transfer_dtype=transfer_dtype, device=devs[k]))
-                    for k, (s0, s1) in enumerate(
-                        _shard_bounds(wi.shape[0], len(devs)))])
+        futs: list[tuple[int, list[tuple]]] = []
+        while True:
+            # the batch's number is held while the caller pulls it (a
+            # generator may make it then) and prepares it
+            seq = tracing.new_batch_id()
+            with tracing.batch(seq):
+                item = next(items, None)
+                if item is None:
+                    break
+                if isinstance(item, _DeviceWindows):
+                    item = [item]
+                if (isinstance(item, (list, tuple)) and item
+                        and isinstance(item[0], _DeviceWindows)):
+                    futs.append((seq, [_submit(seq, w) for w in item]))
+                else:
+                    wi, wq = item
+                    devs = devs or resolve_devices(devices)
+                    futs.append((seq, [_submit(seq, prepare_windows(
+                        wi[s0:s1], wq[s0:s1],
+                        device_batch=min(device_batch, s1 - s0),
+                        transfer_dtype=transfer_dtype, device=devs[k]))
+                        for k, (s0, s1) in enumerate(
+                            _shard_bounds(wi.shape[0], len(devs)))]))
             while len(futs) >= depth:
-                yield _merge(futs.pop(0))
+                yield _merge(*futs.pop(0))
         for sf in futs:
-            yield _merge(sf)
+            yield _merge(*sf)
 
 
 def decode_channels_pipelined(
