@@ -354,7 +354,7 @@ def phase_build():
         ("stft.cu (nvcc)", stft.build_kernel),
         ("coarse.cu (nvcc)", coarse.build_kernel),
         ("correlator.cu (nvcc)", sync.build_kernel),
-        ("hostdsp.cpp (g++)", native.build))]
+        ("hostdsp.cpp, quantize.cpp (g++)", native.build))]
     for t in threads:
         t.start()
     for t in threads:

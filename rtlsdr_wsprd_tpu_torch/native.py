@@ -4,26 +4,31 @@ Binds these pieces of ``native/hostdsp.cpp`` (a file of the repository,
 outside either Python package): the WSPR callsign hash ``wspr_nhash``
 (lookup3, bit-exact with utils/nhash.py), the sequential host Fano decoder
 ``wspr_fano_decode`` (the reference's wsprd/fano.c semantics, bit for
-bit), the convolutional encoder ``wspr_conv_encode``, the float32 ->
-int8/int16 transfer quantizers ``f32_quantize_i8/i16``, the uint8 IQ
+bit), the convolutional encoder ``wspr_conv_encode``, the uint8 IQ
 ingest ``u8_deinterleave_center/pairs`` (rtlsdr_wsprd.c:158-182) and the
 host polyphase decimators ``wspr_pp_decimate_f32/u8`` and
 ``wspr_fir_decimate_f32`` (the host-placed front end,
-frontend/host_decimate.py). The source is compiled with ``g++`` into the
-port's gitignored build directory at first use (buildlib.py). Without
-``g++`` every call raises: nothing here has a pure-Python stand-in.
+frontend/host_decimate.py); and the float32 -> int8/int16 link
+quantizers ``wspr_quantize_i8/i16`` of the port's own
+``csrc/quantize.cpp`` (SSE2, bit for bit hostdsp.cpp's scalar
+``f32_quantize_i8/i16``). Both sources are compiled with ``g++`` into one
+library in the port's gitignored build directory at first use
+(buildlib.py). Without ``g++`` every call raises: nothing here has a
+pure-Python stand-in.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
+from pathlib import Path
 
 import numpy as np
 
 from .buildlib import REPO_ROOT, load_library
 
 _SOURCE = REPO_ROOT / "native" / "hostdsp.cpp"
+_QUANTIZE_SOURCE = Path(__file__).resolve().parent / "csrc" / "quantize.cpp"
 _ABI = 4  # wspr_hostdsp_abi() of the source this binding was written for
 
 _lib = None
@@ -42,7 +47,7 @@ def _load():
     with _lock:
         if _lib is not None:
             return _lib
-        lib = load_library("hostdsp", "g++", [_SOURCE],
+        lib = load_library("hostdsp", "g++", [_SOURCE, _QUANTIZE_SOURCE],
                            ["-O3", "-std=c++17", "-fPIC", "-shared"])
         lib.wspr_hostdsp_abi.restype = ctypes.c_int
         abi = int(lib.wspr_hostdsp_abi())
@@ -60,14 +65,11 @@ def _load():
         lib.wspr_fano_decode.restype = ctypes.c_int
         lib.wspr_conv_encode.argtypes = [u8p, u8p, ctypes.c_int]
         lib.wspr_conv_encode.restype = None
-        lib.f32_quantize_i8.argtypes = [
-            f32p, ctypes.c_uint64, ctypes.c_float,
-            np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")]
-        lib.f32_quantize_i8.restype = None
-        lib.f32_quantize_i16.argtypes = [
-            f32p, ctypes.c_uint64, ctypes.c_float,
-            np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")]
-        lib.f32_quantize_i16.restype = None
+        for fn, dt in ((lib.wspr_quantize_i8, np.int8),
+                       (lib.wspr_quantize_i16, np.int16)):
+            fn.argtypes = [f32p, ctypes.c_uint64, ctypes.c_float,
+                           np.ctypeslib.ndpointer(dt, flags="C_CONTIGUOUS")]
+            fn.restype = ctypes.c_uint64
         lib.u8_deinterleave_center.argtypes = [u8p, ctypes.c_uint64, f32p,
                                                f32p]
         lib.u8_deinterleave_center.restype = None
@@ -159,21 +161,24 @@ def conv_encode(data: np.ndarray, nsym: int = 162) -> np.ndarray:
     return out
 
 
-def quantize_into(x: np.ndarray, out: np.ndarray, scale: float) -> None:
-    """float32 -> int8/int16: NaN -> 0, round to nearest even
-    (``nearbyintf``), clamp to the symmetric range. Writes ``out``."""
+def quantize_into(x: np.ndarray, out: np.ndarray, scale: float) -> int:
+    """float32 -> int8/int16: NaN -> 0, round to nearest even (as
+    ``nearbyintf``), clamp to the symmetric range (csrc/quantize.cpp).
+    Writes ``out``; returns the count of elements that went through the
+    SSE2 body (``x.size`` less its tail of ``x.size % 16``; 0 on a host
+    without SSE2)."""
     if x.dtype != np.float32 or not x.flags.c_contiguous:
         raise ValueError("x must be C-contiguous float32")
     if not out.flags.c_contiguous or out.shape != x.shape:
         raise ValueError("out must be C-contiguous with x's shape")
     lib = _load()
     if out.dtype == np.int8:
-        fn = lib.f32_quantize_i8
+        fn = lib.wspr_quantize_i8
     elif out.dtype == np.int16:
-        fn = lib.f32_quantize_i16
+        fn = lib.wspr_quantize_i16
     else:
         raise ValueError(f"unsupported output dtype {out.dtype}")
-    fn(x.reshape(-1), x.size, np.float32(scale), out.reshape(-1))
+    return int(fn(x.reshape(-1), x.size, np.float32(scale), out.reshape(-1)))
 
 
 def u8_deinterleave_center(raw: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

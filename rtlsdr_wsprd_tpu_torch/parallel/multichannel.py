@@ -51,25 +51,26 @@ Host ranges are spans of the port's record (tracing.py) that also label
 a ``torch.profiler`` run (``record_function``, bound to
 ``tracing.labelled``): ``stage_a`` (launch and fetch),
 ``stage_b_launch``, ``stage_b_wait`` (waiting for a bucket's results),
-``fec_host`` (host mode's FEC),
-``fec_device`` (one device Fano call of hybrid mode, its upload and
-fetch included), ``fec_host_finish`` (hybrid mode's stragglers),
-``spots`` and ``subtract``; the dense path adds ``dense_step`` (one
-pass's device step over all shards, fetch included). The record also
-holds spans that label no profiler run: ``quantize`` and ``upload`` (a
-host batch's trip to the card), ``await_batch`` (the pipelined drivers'
-caller waiting for the oldest batch), ``fano_round`` events (each
-device Fano call's attempts and the stragglers it hands to the host)
-and, elsewhere, ``host_finish``, ``frontend_step``, ``fec_calibrate``
-and ``kernel_load``; the pipelined drivers number each batch
-(``tracing.batch``) on the caller and on the worker. ``_LOG`` also
-emits the JAX package's phase marks at DEBUG, with its text and
-integers (``stage A done``, ``stage B:``, ``stage B fetch done``,
-``fano rounds done``, ``host-finishing``, ``subtracting``,
-``subtraction done``): tools/torch_profile_staged.py times the
-intervals between them. The staged hybrid FEC's ``host-finishing``
-mark has no JAX counterpart (the JAX package logs it on the mesh path
-only); the profiler reads it as a sub-mark.
+``fec_host`` (host mode's FEC), ``fec_device`` (one device Fano call of
+hybrid mode, its upload and fetch included), ``fec_host_finish`` (hybrid
+mode's stragglers), ``spots`` and ``subtract``; the dense path adds
+``dense_step`` (one pass's device step over all shards, fetch included).
+The record also holds spans that label no profiler run: ``quantize`` and
+``upload`` (a host batch's trip to the card; ``quantize`` counts
+``windows``, ``bytes_in`` and ``vector``, the elements of both planes
+that went through the vector body of csrc/quantize.cpp), ``await_batch``
+(the pipelined drivers' caller waiting for the oldest batch),
+``fano_round`` events (each device Fano call's attempts and the
+stragglers it hands to the host) and, elsewhere, ``host_finish``,
+``frontend_step``, ``fec_calibrate`` and ``kernel_load``; the pipelined
+drivers number each batch (``tracing.batch``) on the caller and on the
+worker. ``_LOG`` also emits the JAX package's phase marks at DEBUG, with
+its text and integers (``stage A done``, ``stage B:``, ``stage B fetch
+done``, ``fano rounds done``, ``host-finishing``, ``subtracting``,
+``subtraction done``): tools/torch_profile_staged.py times the intervals
+between them. The staged hybrid FEC's ``host-finishing`` mark has no JAX
+counterpart (the JAX package logs it on the mesh path only); the
+profiler reads it as a sub-mark.
 
 ``fec="auto"`` resolves through ops/calibrate.py: a measurement of the
 device Fano against the native decoder on the card, ``host`` without a
@@ -712,9 +713,10 @@ class _DeviceWindows:
 
     Transfer format (``transfer_dtype``): the windows are -3 dB
     peak-normalized (+-0.5, rtlsdr_wsprd.c:291-305), so by default they
-    cross the host->device link as int8 (``native.quantize_into``: NaN
-    -> 0, round to nearest even, clamp to the symmetric range, scale
-    254) and dequantize on the device, as the JAX package does;
+    cross the host->device link as int8 (``native.quantize_into``, the
+    SSE2 loop of csrc/quantize.cpp, 16 elements a step: NaN -> 0, round
+    to nearest even, clamp to the symmetric range, scale 254) and
+    dequantize on the device, as the JAX package does;
     ``"int16"`` (scale 65534) and ``"float32"`` (exact) are the JAX
     package's other two formats."""
 
@@ -740,12 +742,12 @@ class _DeviceWindows:
         dt, scale = _SCALES[transfer_dtype]
         inv = float(np.float32(1.0) / scale)  # the float32 value exactly
         with tracing.span("quantize", windows=B,
-                          bytes_in=2 * B * shape[1] * 4):
+                          bytes_in=2 * B * shape[1] * 4) as sp:
             hosts = []
             for cur in (cur_i, cur_q):
                 host = np.zeros(shape, dt)
-                native.quantize_into(np.ascontiguousarray(cur, np.float32),
-                                     host[:B], scale)
+                sp.add(vector=native.quantize_into(
+                    np.ascontiguousarray(cur, np.float32), host[:B], scale))
                 hosts.append(host)
         with tracing.span("upload", bytes=2 * hosts[0].nbytes):
             self._di, self._dq = (

@@ -199,7 +199,8 @@ def test_quantize_and_upload_spans(ring, wins):
     got = {r.name: r for r in tracing.records()}
     assert set(got) == {"quantize", "upload"}
     assert got["quantize"].counts == {"windows": 3,
-                                      "bytes_in": 2 * 3 * 45000 * 4}
+                                      "bytes_in": 2 * 3 * 45000 * 4,
+                                      "vector": 2 * (3 * 45000 - 8)}
     assert got["upload"].counts == {"bytes": 2 * dw.n_pad * 45000}
     assert got["quantize"].end_ns <= got["upload"].start_ns
     tracing._RING = tracing.Ring()
