@@ -193,8 +193,10 @@ def baseband(mix: dict, seed: int, device="cpu") -> Pool:
     syms = _symbols(signals)
     phase0 = _phases(content, len(signals))
     amp = _amplitude(np.array([s.snr_db for s in signals]), 1.0, 375.0)
-    wi = np.empty((P, SIGNAL_SAMPLES), np.float32)
-    wq = np.empty((P, SIGNAL_SAMPLES), np.float32)
+    # both planes of every window on the device, put in the seed's order
+    # there and copied to the host once: one pass over the host's pages
+    out = torch.empty((2, P, SIGNAL_SAMPLES), dtype=torch.float32,
+                      device=device)
     by_window: dict[int, list[int]] = {}
     for k, s in enumerate(signals):
         by_window.setdefault(s.window, []).append(k)
@@ -227,11 +229,13 @@ def baseband(mix: dict, seed: int, device="cpu") -> Pool:
                 zq[row, dst0:dst0 + m] += sq[r, src0:src0 + m]
         peak = torch.maximum(zi.abs().amax(dim=1), zq.abs().amax(dim=1))
         scale = (0.5 / torch.clamp(peak, min=1e-24))[:, None]
-        wi[w0:w0 + n] = (zi * scale).cpu().numpy()
-        wq[w0:w0 + n] = (zq * scale).cpu().numpy()
+        out[0, w0:w0 + n] = zi * scale
+        out[1, w0:w0 + n] = zq * scale
     at = slots(P, seed)
+    host = out[:, torch.as_tensor(at, device=device)].cpu().numpy()
+    del out
     truth = _truth(signals, P)
-    return Pool(signals, [truth[c] for c in at], at, wi=wi[at], wq=wq[at])
+    return Pool(signals, [truth[c] for c in at], at, wi=host[0], wq=host[1])
 
 
 def _phases(content_seed: int, n: int) -> np.ndarray:

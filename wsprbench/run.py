@@ -4,8 +4,10 @@
 
 The cell, its configuration and its traffic mix are looked up by name
 in ``BENCHMARK.json``; the configuration's file says how the deployment
-feeds the decode (``feed``), the mix's file what it feeds
-(``gen.py``). A run makes its inputs from the seed, warms every shape
+feeds the decode (``feed``: a module of ``feeds/``, whose contract
+``feeds/__init__.py`` states), the mix's file what it feeds
+(``gen.py``). A run hands the feed the cell's ``chips`` cards
+(``cuda:0`` onwards), makes its inputs from the seed, warms every shape
 up (set-up), then drives the deployment's pipelined decode in a closed
 loop for ``--seconds``: the driver pulls the next batch when it has
 room. Afterwards it compares a sample of the answers drawn from the
@@ -16,7 +18,7 @@ of standard output. With ``--trace 1`` the window runs traced
 (``trace.py``) and the line carries the per-layer metrics instead.
 
 A run without a CUDA card, or with fewer cards than the cell asks for,
-exits with code 3 and prints no result. Every cell runs on one card.
+exits with code 3 and prints no result.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import importlib
+import importlib.util
 import json
 import multiprocessing
 import os
@@ -56,6 +59,7 @@ class Cell:
     end_to_end: list
     per_layer: list
     limits: dict = field(default_factory=dict)
+    root: Path = ROOT       # the checkout its files were read from
 
 
 def load_cell(name: str, root: Path = ROOT) -> Cell:
@@ -74,7 +78,18 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
          if name in m.get("workloads", [name])],
         [m for m in bench["per_layer"]
          if name in m.get("workloads", [name])],
-        json.loads(lim.read_text()) if lim.exists() else {})
+        json.loads(lim.read_text()) if lim.exists() else {}, root)
+
+
+def feed_class(cell: Cell):
+    """The ``Feed`` of ``feeds/<feed>.py`` under the cell's own root."""
+    name = cell.config["feed"]
+    path = cell.root / "wsprbench" / "feeds" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(
+        f"wsprbench.feeds.{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.Feed
 
 
 def decoder_options(config: dict):
@@ -82,7 +97,7 @@ def decoder_options(config: dict):
     return DecoderOptions(**config.get("options", {}))
 
 
-# ---------------------------------------------------------------- feeds
+# ---------------------------------------------------------------- a run
 
 class Window:
     """The closed loop's bookkeeping: when each batch was pulled and when
@@ -118,149 +133,6 @@ class Window:
         """Each batch yielded inside the window: its pull to its yield."""
         return [1e3 * (self.yields[k] - self.pulls[k]) for k in self.done()]
 
-
-class HostFarm:
-    """``feed: host``: host float32 windows, quantized and uploaded by the
-    pipelined driver (``transfer_dtype``), batches of the mix's size
-    cycled over the pool."""
-
-    def __init__(self, cell: Cell, seed: int, device):
-        self.cell, self.device = cell, device
-        self.batch = int(cell.mix["batch"])
-        self.pool = gen.baseband(cell.mix, seed, device=device)
-        self.n_batches = self.pool.wi.shape[0] // self.batch
-
-    def items(self, win: Window | None, order):
-        for b in order(self.n_batches):
-            if win is not None and not win.pulled(b):
-                return
-            s = slice(b * self.batch, (b + 1) * self.batch)
-            yield self.pool.wi[s], self.pool.wq[s]
-
-    def windows_of(self, key) -> list[int]:
-        return list(range(key * self.batch, (key + 1) * self.batch))
-
-    def decode(self, items, options, on_error):
-        from rtlsdr_wsprd_tpu_torch.parallel import multichannel as mc
-        cfg = self.cell.config
-        return mc.decode_channels_pipelined(
-            items, options, depth=int(cfg["depth"]), device_batch=self.batch,
-            transfer_dtype=cfg["transfer_dtype"], fec=cfg["fec"],
-            device=self.device, on_error=on_error)
-
-    def warm(self, options):
-        """Every batch of the pool once: every lane bucket and budget the
-        window meets."""
-        for _ in self.decode(self.items(None, range), options, None):
-            pass
-
-    def reference_inputs(self, w: int):
-        from wsprbench.reference.decode import quantize
-        if self.cell.config["transfer_dtype"] == "int8":
-            return quantize(self.pool.wi[w]), quantize(self.pool.wq[w])
-        return self.pool.wi[w], self.pool.wq[w]
-
-    def release(self):
-        pass
-
-
-class RawChain:
-    """``feed: device_raw``: each channel a raw 2.4 Msps uint8 capture on
-    the card, replayed every round with the front end's carries going
-    on: ``steps`` fused stage-1 + stage-2 steps of ``n_mid`` stage-1
-    frames a round, each window normalized to a 0.5 peak on the card and
-    handed over as a ``prepare_windows_device`` handle."""
-
-    def __init__(self, cell: Cell, seed: int, device):
-        from rtlsdr_wsprd_tpu_torch.frontend.filters import (
-            R1, R2, STAGE1_TAPS, STAGE2_TAPS)
-        self.cell, self.device = cell, device
-        dev = device
-        cfg = cell.config["frontend"]
-        self.n_mid = int(cfg["n_mid"])
-        self.steps = int(cfg["steps"])
-        self.R1 = R1
-        self.lead = STAGE1_TAPS - R1
-        self.batch = int(cell.mix["batch"])
-        self.pool = gen.raw_capture(cell.mix, seed, dev, lead=self.lead)
-        C = self.pool.raw_i.shape[0]
-        self.m2 = [torch.zeros((C, STAGE2_TAPS - R2), dtype=torch.float32,
-                               device=dev) for _ in range(2)]
-        self.check_rows: list[int] = []
-        self.kept: list = []          # (rows I, rows Q) a round, on the card
-        self.rounds = 0
-
-    def _round(self):
-        from rtlsdr_wsprd_tpu_torch.frontend.decimate import (
-            _fused_frontend_step)
-        from rtlsdr_wsprd_tpu_torch.parallel.multichannel import (
-            prepare_windows_device)
-        ri, rq = self.pool.raw_i, self.pool.raw_q
-        span = self.n_mid * self.R1
-        ois, oqs = [], []
-        for s in range(self.steps):
-            a = s * span
-            oi, oq, self.m2[0], self.m2[1] = _fused_frontend_step(
-                ri[:, a:a + span + self.lead], rq[:, a:a + span + self.lead],
-                self.m2[0], self.m2[1], self.n_mid)
-            ois.append(oi)
-            oqs.append(oq)
-        if self.rounds == 0:  # from now on the stream runs on in a loop
-            ri[:, :self.lead] = ri[:, -self.lead:]
-            rq[:, :self.lead] = rq[:, -self.lead:]
-        self.rounds += 1
-        wi, wq = torch.cat(ois, dim=1), torch.cat(oqs, dim=1)
-        peak = torch.maximum(wi.abs().amax(dim=1), wq.abs().amax(dim=1))
-        scale = (0.5 / torch.clamp(peak, min=1e-24))[:, None]
-        wi, wq = wi * scale, wq * scale
-        if self.check_rows and self.rounds > 1:  # rounds after the first
-            rows = torch.as_tensor(self.check_rows, device=wi.device)
-            self.kept.append((wi[rows], wq[rows]))
-        return prepare_windows_device(wi, wq, device_batch=self.batch)
-
-    def items(self, win: Window | None, order=None):
-        """Rounds while the window is open; without one, one round."""
-        while win is None or win.pulled(0):
-            yield self._round()
-            if win is None:
-                return
-
-    def windows_of(self, key) -> list[int]:
-        return list(range(self.batch))
-
-    def decode(self, items, options, on_error):
-        from rtlsdr_wsprd_tpu_torch.parallel import multichannel as mc
-        cfg = self.cell.config
-        return mc.decode_channels_pipelined(
-            items, options, depth=int(cfg["depth"]), device_batch=self.batch,
-            fec=cfg["fec"], device=self.device, on_error=on_error)
-
-    def warm(self, options):
-        """Round 0, which primes the carries."""
-        for _ in self.decode(self.items(None, range), options, None):
-            pass
-
-    def keep_for_check(self, rows: list[int]):
-        """Keep these channels' windows of every round after the first."""
-        self.check_rows = rows
-
-    def release(self):
-        self.pool.raw_i = self.pool.raw_q = None
-        self.m2 = None
-
-    def reference_baseband(self, dtype):
-        """The reference front end's steady windows of the kept channels,
-        from their captures (the bytes after the stream's lead)."""
-        from wsprbench.reference.frontend import steady_window
-        return [steady_window(self.pool.raw_i[r, self.lead:],
-                              self.pool.raw_q[r, self.lead:], dtype=dtype)
-                for r in self.check_rows]
-
-
-FEEDS = {"host": HostFarm, "device_raw": RawChain}
-
-
-# ---------------------------------------------------------------- a run
 
 def sample_windows(mix: dict, seed: int) -> list[int]:
     """The pool slots whose answers are judged, drawn from the seed: half
@@ -316,23 +188,28 @@ def launch_counts() -> dict:
 def run(cell: Cell, seed: int, seconds: float, trace: bool,
         device: str | None = None, log=None) -> dict:
     """One run of ``cell``; returns the result line's object. ``device``
-    names the card (None: cuda:0 .. chips-1); the tests pass "cpu"."""
+    names the device that stands for each of the cell's ``chips`` cards
+    (None: cuda:0 .. chips-1); the tests pass "cpu"."""
     log = log or (lambda *a: print(*a, file=sys.stderr, flush=True))
-    dev = torch.device(device if device is not None else "cuda:0")
+    devs = ([torch.device(device)] * cell.chips if device is not None
+            else [torch.device("cuda", k) for k in range(cell.chips)])
+    dev = devs[0]
     cuda = dev.type == "cuda"
+    make_feed = feed_class(cell)
     if cuda:
-        torch.empty(1, device=dev)
-        torch.cuda.reset_peak_memory_stats(dev)
+        for d in devs:
+            torch.empty(1, device=d)
+            torch.cuda.reset_peak_memory_stats(d)
     t_setup = time.perf_counter()
     from rtlsdr_wsprd_tpu_torch.ops.calibrate import describe
     options = decoder_options(cell.config)
-    feed = FEEDS[cell.config["feed"]](cell, seed, dev)
+    feed = make_feed(cell, seed, devs)
     checked = sample_windows(cell.mix, seed)
-    if isinstance(feed, RawChain):
-        feed.keep_for_check(checked)
+    feed.keep_for_check(checked)
     feed.warm(options)
     if cuda:
-        torch.cuda.synchronize(dev)
+        for d in devs:
+            torch.cuda.synchronize(d)
     setup_s = time.perf_counter() - t_setup
     log(f"fec: {describe(cell.config['fec'], dev)}")
     before = launch_counts()
@@ -352,8 +229,10 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool,
         log(f"batch failed: {exc!r}")
 
     tr = Trace(card=torch.cuda.get_device_name(dev) if cuda else "cpu",
-               t0=0.0, t1=0.0, windows=0, options_maxdrift=options.maxdrift)
-    ctx = instrument(tr, cuda=cuda) if trace else contextlib.nullcontext()
+               t0=0.0, t1=0.0, windows=0, options_maxdrift=options.maxdrift,
+               cards=len(devs))
+    ctx = (instrument(tr, cuda=cuda, devices=devs) if trace
+           else contextlib.nullcontext())
     with ctx:
         win.open()
         for spots in feed.decode(feed.items(win, order), options, on_error):
@@ -363,9 +242,9 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool,
     after = launch_counts()
     launches = {k: after[k] - before.get(k, 0) for k in after}
     log(f"launches in the window: {json.dumps(launches)}")
-    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
-    per_batch = feed.batch
-    n_windows = len(done) * per_batch
+    peak = max(torch.cuda.max_memory_allocated(d) for d in devs) \
+        if cuda else 0
+    n_windows = sum(len(feed.windows_of(win.keys[k])) for k in done)
 
     # ---- the check, once the window has closed
     yields = []
@@ -373,20 +252,9 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool,
         for w, spots in zip(feed.windows_of(win.keys[k]), win.results[k]):
             if w in checked:
                 yields.append((w, spots))
-    numbers: dict = {}
-    if isinstance(feed, RawChain):
-        ref_bb = feed.reference_baseband(torch.float64)
-        err = 0.0
-        for ki, kq in feed.kept[:len(done)]:
-            for k in range(len(checked)):
-                ri, rq = ref_bb[k]
-                err = max(err, float((ki[k] - ri).abs().max()),
-                          float((kq[k] - rq).abs().max()))
-        numbers["baseband_err"] = err / 0.5
-        inputs = {w: (ref_bb[k][0].cpu().numpy(), ref_bb[k][1].cpu().numpy())
-                  for k, w in enumerate(checked)}
-    else:
-        inputs = {w: feed.reference_inputs(w) for w in checked}
+    inputs, numbers = feed.check_inputs(checked, len(done))
+    attempted = sum(len(feed.windows_of(key)) for key in win.keys)
+    failed = win.failed * feed.batch
     feed.release()
     del feed
     t_ref = time.perf_counter()
@@ -405,11 +273,10 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool,
         ok = False
 
     device_info = {"platform": "gpu" if cuda else "cpu",
-                   "kind": tr.card, "count": 1,
+                   "kind": tr.card, "count": len(devs),
                    "memory_peak_bytes": int(peak)}
     out = {"correct": bool(ok and win.failed == 0),
-           "attempted": len(win.pulls) * per_batch,
-           "failed": win.failed * per_batch}
+           "attempted": attempted, "failed": failed}
     if trace:
         tr.t0, tr.t1 = win.t0, win.t1
         tr.windows = n_windows

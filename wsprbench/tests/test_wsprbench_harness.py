@@ -31,14 +31,16 @@ def test_every_name_resolves_to_a_file():
     for c in BENCH["configs"]:
         assert (ROOT / c["file"]).is_file()
         assert c["file"].startswith("wsprbench/")
+        feed = json.loads((ROOT / c["file"]).read_text())["feed"]
+        assert (ROOT / "wsprbench" / "feeds" / f"{feed}.py").is_file()
     for w in BENCH["workloads"]:
         assert (ROOT / "wsprbench" / "traffic" / f"{w['traffic']}.json").is_file()
         assert (ROOT / "wsprbench" / "limits" / f"{w['name']}.json").is_file()
         assert R.load_cell(w["name"]).config
+    names = {m["name"] for m in BENCH["end_to_end"]}
     for m in BENCH["per_layer"]:
         assert (ROOT / "wsprbench" / "metrics" / f"{m['name']}.py").is_file()
-        assert m["moves"] == "windows_per_s"
-    names = {m["name"] for m in BENCH["end_to_end"]}
+        assert m["moves"] in names
     assert names == {"windows_per_s", "setup_s"}
 
 
@@ -88,6 +90,98 @@ def test_a_new_config_mix_and_metric_are_new_files_only(tmp_path):
         sys.path.remove(str(root))
     assert out["correct"] is True
     assert "windows_done" in out["metrics"] or out["device"]["busy_s"] == 0
+
+
+MULTI_FEED = '''"""A throwaway feed: the host farm's pool in pulls of a batch and
+of half of one by turns, each through decode_channels_pipelined_multidevice
+over the cell's cards."""
+
+from wsprbench.feeds import host
+
+
+def cuts(P, batch):
+    out, a = [], 0
+    while a < P:
+        b = min(P, a + (batch if len(out) % 2 == 0 else batch // 2))
+        out.append((a, b))
+        a = b
+    return out
+
+
+class Feed(host.Feed):
+    def __init__(self, cell, seed, devices):
+        super().__init__(cell, seed, devices)
+        self.cuts = cuts(self.pool.wi.shape[0], self.batch)
+
+    def items(self, win, order):
+        for k in order(len(self.cuts)):
+            if win is not None and not win.pulled(k):
+                return
+            a, b = self.cuts[k]
+            yield self.pool.wi[a:b], self.pool.wq[a:b]
+
+    def windows_of(self, key):
+        return list(range(*self.cuts[key]))
+
+    def decode(self, items, options, on_error):
+        from rtlsdr_wsprd_tpu_torch.parallel import multichannel as mc
+        cfg = self.cell.config
+        return mc.decode_channels_pipelined_multidevice(
+            items, options, depth=int(cfg["depth"]), device_batch=self.batch,
+            transfer_dtype=cfg["transfer_dtype"], fec=cfg["fec"],
+            on_error=on_error, devices=self.devices)
+'''
+
+
+def test_a_new_feed_on_two_cards_is_new_files_only(tmp_path, monkeypatch):
+    """A throwaway feed, its configuration and a two-card cell, added as
+    new files and new BENCHMARK.json entries in a copy: the run finds the
+    feed under the copy's root, hands it both cards, reports them, and
+    counts the windows of every pull, whatever each holds."""
+    root = tmp_path / "co"
+    shutil.copytree(ROOT / "wsprbench", root / "wsprbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    before = {p.relative_to(root): p.read_bytes()
+              for p in (root / "wsprbench").rglob("*") if p.is_file()}
+    (root / "wsprbench/feeds/multi_host.py").write_text(MULTI_FEED)
+    cfg = json.loads((ROOT / "wsprbench/configs/wsprd_farm.json").read_text())
+    cfg["feed"] = "multi_host"
+    (root / "wsprbench/configs/multi_farm.json").write_text(json.dumps(cfg))
+    (root / "wsprbench/limits/multi.mixed.json").write_bytes(
+        (ROOT / "wsprbench/limits/farm.mixed.json").read_bytes())
+    bench = json.loads(json.dumps(BENCH))
+    bench["configs"].append(dict(bench["configs"][0], name="multi_farm",
+                                 file="wsprbench/configs/multi_farm.json"))
+    bench["workloads"].append({"name": "multi.mixed", "config": "multi_farm",
+                               "traffic": "mixed", "chips": 2, "why": "x"})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    after = {p.relative_to(root): p.read_bytes()
+             for p in (root / "wsprbench").rglob("*")
+             if p.is_file() and p.relative_to(root) in before}
+    assert after == before  # nothing that was there changed
+    assert not (ROOT / "wsprbench/feeds/multi_host.py").exists()
+
+    cell = R.load_cell("multi.mixed", root=root)
+    assert cell.chips == 2 and cell.root == root
+    cell.mix = dict(cell.mix, windows=8, batch=4, check_windows=8)
+    cell.config = dict(cell.config, kernels=[])
+    sizes = {0: 4, 1: 2, 2: 2}  # the feed's cuts of 8 windows, batch 4
+    pulled = []
+    real = R.Window.pulled
+
+    def note(self, key):
+        ok = real(self, key)
+        if ok:
+            pulled.append(key)
+        return ok
+
+    monkeypatch.setattr(R.Window, "pulled", note)
+    out = R.run(cell, SEED + 6, 1.0, False, device="cpu", log=lambda *a: None)
+    assert out["correct"] is True and out["failed"] == 0
+    assert out["device"]["count"] == 2
+    assert out["attempted"] == sum(sizes[k] for k in pulled)
+    assert out["attempted"] < 4 * len(pulled)  # a half pull is counted half
+    assert out["metrics"]["windows_per_s"]["value"] > 0
 
 
 def test_result_line_keys_and_a_sound_run():

@@ -109,6 +109,50 @@ def test_readers_on_known_records(recorded):
     assert _read("kernel_load_s", tr) == pytest.approx(0.75)
 
 
+def _busy_as_one_timeline(tr):
+    """``busy_s`` as it read before cards were told apart: the union of
+    every event's interval in the window."""
+    iv = sorted((max(a, tr.t0), min(b, tr.t1)) for _, a, b, _ in tr.device)
+    total, end = 0.0, float("-inf")
+    for a, b in iv:
+        if b > a and b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def test_two_cards_busy_by_turns_read_half_the_window():
+    """Card 0 busy in the window's first half, card 1 in its second: each
+    card is busy half of it, so the mean is half; no moment has both
+    idle, so the breakdown finds no gap."""
+    ev = [("k", 10.0, 15.0, 0), ("k", 15.0, 20.0, 1)]
+    tr = Trace(card="x", t0=10.0, t1=20.0, windows=10, device=ev, cards=2)
+    assert tr.busy_s() == pytest.approx(5.0)
+    assert _read("device_idle_pct", tr) == pytest.approx(50.0)
+    assert tr.breakdown()["idle_gaps"] == []
+    assert tr.breakdown()["device_ops"] == [["k", pytest.approx(10.0)]]
+
+
+@pytest.mark.parametrize("device", [
+    [("k", 10.0, 15.0, 0), ("k", 15.0, 20.0, 0)],
+    [("k", 9.0, 11.0, 0), ("k", 12.0, 14.0, 0), ("k", 13.0, 15.0, 0),
+     ("k", 19.5, 21.0, 0)],
+])
+def test_one_card_reads_as_one_timeline(device):
+    """The same events on one card read as the single timeline did: the
+    busy seconds, the idle share and the gaps."""
+    tr = Trace(card="x", t0=10.0, t1=20.0, windows=10, device=device)
+    assert tr.cards == 1
+    assert tr.busy_s() == _busy_as_one_timeline(tr)
+    assert _read("device_idle_pct", tr) == \
+        100.0 * (1.0 - _busy_as_one_timeline(tr) / 10.0)
+    gaps = [g for _, g in tr.breakdown()["idle_gaps"]]
+    assert sum(gaps) == pytest.approx(10.0 - tr.busy_s())
+    if len(device) == 4:
+        assert tr.busy_s() == pytest.approx(4.5)
+        assert gaps == [pytest.approx(4.5), pytest.approx(1.0)]
+
+
 def test_readers_are_silent_without_their_records(recorded, monkeypatch):
     tr = Trace(card="x", t0=10.0, t1=20.0, windows=100)
     names = ("quantize_ms", "upload_ms", "prepare_cpu_pct", "caller_wait_ms",

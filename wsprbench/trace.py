@@ -13,9 +13,10 @@ shapes of its kernel calls, and the card's activity.
 * Kernel calls: the wrappers that launch ``stft.cu``, ``coarse.cu``,
   ``correlator.cu`` and ``polyphase_tc.cu`` are wrapped to note each
   launch's shapes, which the frozen counts of ``work.py`` price.
-* The card: ``torch.profiler`` with CUDA activity only (kernels, copies,
-  sets), its clock tied to the host's by one marker kernel launched
-  after a synchronize.
+* The cards: ``torch.profiler`` with CUDA activity only (kernels,
+  copies, sets) on every card of the cell, each event keeping its card's
+  index; the profiler's one clock tied to the host's by one marker
+  kernel launched after a synchronize of every card.
 """
 
 from __future__ import annotations
@@ -78,6 +79,7 @@ class Trace:
     device: list = field(default_factory=list)   # (name, start, end, card)
     options_maxdrift: int = 4
     batch_ms: list = field(default_factory=list)  # pull to yield, a batch
+    cards: int = 1                 # the cards the run uses
 
     @property
     def window_s(self) -> float:
@@ -119,9 +121,12 @@ class Trace:
 
     # ---- device ----
     def busy_s(self) -> float:
-        """Seconds of the window in which an operation ran on the card."""
-        return _union(sorted((max(a, self.t0), min(b, self.t1))
-                             for _, a, b, _ in self.device))
+        """Seconds of the window in which an operation ran on a card,
+        each card's own, averaged over the run's cards."""
+        by_card = defaultdict(list)
+        for _, a, b, c in self.device:
+            by_card[c].append((max(a, self.t0), min(b, self.t1)))
+        return sum(_union(sorted(iv)) for iv in by_card.values()) / self.cards
 
     def kernel_s(self, key: str) -> float:
         pat = re.compile(r"\b" + KERNELS[key] + r"\b")
@@ -143,6 +148,9 @@ class Trace:
         return 100.0 * least / busy
 
     def breakdown(self) -> dict:
+        """The device operations that took most time, summed over the
+        cards, and the longest gaps in which no card was busy, by the
+        host ranges open at their middle."""
         tot: dict[str, float] = defaultdict(float)
         for n, a, b, _ in self.device:
             tot[_short(n)] += max(0.0, min(b, self.t1) - max(a, self.t0))
@@ -183,10 +191,12 @@ def _short(name: str) -> str:
 
 
 @contextlib.contextmanager
-def instrument(trace: Trace, cuda: bool = True):
+def instrument(trace: Trace, cuda: bool = True, devices=None):
     """Within the block: the program's ranges go to ``trace.spans``, its
     kernel wrappers note their shapes in ``trace.calls``, and (``cuda``)
-    the profiler records the card, tied to the host clock."""
+    the profiler records the cards, tied to the host clock. ``devices``:
+    the cards synchronized where the block opens and closes (None: the
+    current one)."""
     from rtlsdr_wsprd_tpu_torch.frontend import decimate
     from rtlsdr_wsprd_tpu_torch.ops import coarse, stft, sync
     from rtlsdr_wsprd_tpu_torch.parallel import multichannel
@@ -230,19 +240,24 @@ def instrument(trace: Trace, cuda: bool = True):
     coarse.coarse_rows = coarse_rows
     sync.tone_correlator = tone_correlator
     decimate.polyphase_decimate = polyphase_decimate
+
+    def sync_cards():
+        for d in devices or [None]:
+            torch.cuda.synchronize(d)
+
     prof = None
     try:
         if cuda:
             prof = torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA])
             prof.__enter__()
-            torch.cuda.synchronize()
+            sync_cards()
             mark = time.perf_counter()
             torch.cuda._sleep(1000)
         yield trace
     finally:
         if prof is not None:
-            torch.cuda.synchronize()
+            sync_cards()
             prof.__exit__(None, None, None)
         for (m, a), f in orig.items():
             setattr(m, a, f)
