@@ -157,7 +157,11 @@ Phases, in order; any failure exits non-zero before the last line:
             [cuda:0] and [cuda:0, cuda:0], each equal to decode_channels
             in every spot field; decode_channels_pipelined_multidevice
             over 4 batches on two shards of the card, with windows/s
-            (run right after the decode phase); its transfer part on the
+            (run right after the decode phase); with more than one
+            visible card, the same pipelined decode over 2 batches of
+            the 512 windows on every card, each card's shard equal in
+            every spot field to decode_channels on cuda:0 of its windows,
+            with windows/s and each card's FEC; its transfer part on the
             first 128 windows: decode_channels_pipelined over 2 batches
             at transfer_dtype int16 and float32,
             decode_channels_multidevice on [cuda:0, cuda:0] at int16 and
@@ -2396,10 +2400,67 @@ def phase_multidevice(dev, card, wi, wq, host_spots, DB: int = 128):
         f"{rate:.1f} decode windows/s ({card}); every batch equals "
         f"decode_channels on its shards")
     summary["pipelined_multidevice_x2"] = round(rate, 1)
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        summary[f"pipelined_multidevice_cards{n_cards}"] = _every_card(
+            wi, wq, opts, counts, shapes_by_path, card, n_cards)
     summary["transfer"] = phase_transfer(dev, card, wi, wq, counts,
                                          shapes_by_path, DB)
     log(json.dumps({"multidevice": summary}))
     return counts, summary
+
+
+def _every_card(wi, wq, opts, counts, shapes_by_path, card, n_cards,
+                n_batches: int = 2):
+    """The pipelined multi-device decode on every visible card (the
+    four-card farm's path: int8, depth 2, fec auto), fed the batch
+    ``n_batches`` times: each card's shard equal in every spot field to
+    decode_channels on cuda:0 of the same windows, and each card's
+    kernels launched. Returns the decode windows/s."""
+    from rtlsdr_wsprd_tpu_torch.parallel.mesh import _shard_bounds
+    from rtlsdr_wsprd_tpu_torch.parallel.multichannel import (
+        decode_channels,
+        decode_channels_pipelined_multidevice,
+    )
+
+    B = wi.shape[0]
+    cards = [f"cuda:{k}" for k in range(n_cards)]
+    bounds = _shard_bounds(B, n_cards)
+    DB = max(s1 - s0 for s0, s1 in bounds)
+    want = [_fields(decode_channels(wi[s0:s1], wq[s0:s1], opts,
+                                    device_batch=s1 - s0, device="cuda:0"))
+            for s0, s1 in bounds]
+    label = f"pipelined multidevice on {n_cards} cards"
+    with counted_path(label, counts, shapes_by_path, phase="multidevice"):
+        t0 = time.perf_counter()
+        out = list(decode_channels_pipelined_multidevice(
+            [(wi, wq)] * n_batches, opts, depth=2, device_batch=DB,
+            devices=cards))
+        for c in cards:
+            torch.cuda.synchronize(c)
+        secs = time.perf_counter() - t0
+    if len(out) != n_batches:
+        fail(f"{label}: {len(out)} batches of {n_batches}")
+    for b, got in enumerate(out):
+        for k, (s0, s1) in enumerate(bounds):
+            if _fields(got[s0:s1]) != want[k]:
+                bad = [w for w in range(s1 - s0)
+                       if _fields(got[s0 + w:s0 + w + 1]) != want[k][w:w + 1]]
+                fail(f"{label}: batch {b}, {cards[k]}'s shard differs from "
+                     f"decode_channels on cuda:0 in windows "
+                     f"{[s0 + w for w in bad[:10]]}")
+    if not counts[label]["fano"]:
+        fail(f"{label} launched the Fano kernel no time")
+    from rtlsdr_wsprd_tpu_torch.ops.calibrate import describe
+    for c in cards:
+        log(f"[multidevice] {c}: {torch.cuda.get_device_name(c)}, FEC "
+            f"{describe('auto', c)}")
+    rate = n_batches * B / secs
+    log(f"[multidevice] decode_channels_pipelined_multidevice depth 2 on "
+        f"{cards}, {n_batches} x {B} windows in shards of {DB}: {secs:.2f} s"
+        f" = {rate:.1f} decode windows/s ({card}); each card's shard equals "
+        f"decode_channels on cuda:0 of its windows in every spot field")
+    return round(rate, 1)
 
 
 TRANSFER_N = 128  # windows of the multidevice phase's transfer part
@@ -3054,11 +3115,13 @@ def main() -> None:
              **dist_counts, **entry_counts, **bench_counts,
              **scaling_counts}
     # cuda, cuda:0 and None (describe, the CLIs) name one card: one
-    # measurement in the whole run
+    # measurement in the whole run for it, and one for each other card
+    # the multidevice phase decodes on
     log(f"[decode] FEC calibrations measured in this run: {measured}")
-    if len(measured) != 1:
-        fail(f"the FEC calibration was measured {len(measured)} times: "
-             f"{measured}")
+    if len(measured) != torch.cuda.device_count() or len(
+            set(measured[1:]) | {"cuda:0"}) != len(measured):
+        fail(f"the FEC calibration was measured {len(measured)} times "
+             f"on {torch.cuda.device_count()} card(s): {measured}")
     kernels = []
     for kname, route, src in (
             ("polyphase_tc", "tc", "polyphase_tc.cu"),

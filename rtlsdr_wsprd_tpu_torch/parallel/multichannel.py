@@ -60,6 +60,9 @@ The record also holds spans that label no profiler run: ``quantize`` and
 ``windows``, ``bytes_in`` and ``vector``, the elements of both planes
 that went through the vector body of csrc/quantize.cpp), ``await_batch``
 (the pipelined drivers' caller waiting for the oldest batch),
+``prepare_shard`` (the caller quantizing and uploading one shard of a
+host batch, around its ``quantize`` and ``upload``) and ``shard`` (a
+worker decoding one shard), both counting ``card`` and ``windows``,
 ``fano_round`` events (each device Fano call's attempts and the
 stragglers it hands to the host) and, elsewhere, ``host_finish``,
 ``frontend_step``, ``fec_calibrate`` and ``kernel_load``; the pipelined
@@ -582,6 +585,12 @@ def _unpack(f32: np.ndarray, i32: np.ndarray, data: np.ndarray,
         cycles=i32[:, 4].astype(np.uint32), data=data, deint=deint,
         n_gate=i32[:, 5, 0],
     )
+
+
+def _card(dev: torch.device, k: int) -> int:
+    """The ``card`` a shard's spans count: its device's index, or its
+    place ``k`` in the batch where the device has none (the CPU)."""
+    return k if dev.index is None else dev.index
 
 
 def _on_device(dev: torch.device):
@@ -1359,13 +1368,21 @@ def decode_channels_pipelined_multidevice(
                 out.extend(_shard_result(fut, n_ch))
         return resolve_type3_spots(out, ht)
 
-    def _decode(seq, w):
-        with tracing.batch(seq):
+    def _decode(seq, w, card):
+        with tracing.batch(seq), tracing.span("shard", card=card,
+                                              windows=w.B):
             return decode_channels(None, None, options, ht, windows=w,
                                    fec=fec)
 
-    def _submit(seq, w):
-        return ex.submit(_decode, seq, w), w.B
+    def _submit(seq, w, k):
+        return ex.submit(_decode, seq, w, _card(w.device, k)), w.B
+
+    def _prepare(wi, wq, k, s0, s1):
+        card = _card(devs[k], k)
+        with tracing.span("prepare_shard", card=card, windows=s1 - s0):
+            return prepare_windows(
+                wi[s0:s1], wq[s0:s1], device_batch=min(device_batch, s1 - s0),
+                transfer_dtype=transfer_dtype, device=devs[k])
 
     n_dev = (len(devices) if devices is not None
              else torch.cuda.device_count())
@@ -1384,14 +1401,15 @@ def decode_channels_pipelined_multidevice(
                     item = [item]
                 if (isinstance(item, (list, tuple)) and item
                         and isinstance(item[0], _DeviceWindows)):
-                    futs.append((seq, [_submit(seq, w) for w in item]))
+                    futs.append((seq, [_submit(seq, w, k)
+                                       for k, w in enumerate(item)]))
                 else:
+                    # each shard goes to its worker as soon as it is on
+                    # its card, while the caller prepares the next one
                     wi, wq = item
                     devs = devs or resolve_devices(devices)
-                    futs.append((seq, [_submit(seq, prepare_windows(
-                        wi[s0:s1], wq[s0:s1],
-                        device_batch=min(device_batch, s1 - s0),
-                        transfer_dtype=transfer_dtype, device=devs[k]))
+                    futs.append((seq, [
+                        _submit(seq, _prepare(wi, wq, k, s0, s1), k)
                         for k, (s0, s1) in enumerate(
                             _shard_bounds(wi.shape[0], len(devs)))]))
             while len(futs) >= depth:

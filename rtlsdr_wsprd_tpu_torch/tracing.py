@@ -40,8 +40,9 @@ import threading
 import time
 from typing import NamedTuple
 
-# records the ring holds: a 51 s traced run of either benchmark cell and
-# its set-up make under 10,000 (a few hundred bytes a record)
+# records the ring holds: a 51 s run of any benchmark cell and its
+# set-up make under 10,000, the four-card farm's 8 workers included (a
+# few hundred bytes a record)
 CAPACITY = 1 << 16
 
 

@@ -156,6 +156,39 @@ def test_one_measurement_for_one_card(monkeypatch):
     assert calls == ["cuda", "cpu"]
 
 
+def test_one_native_measurement_for_four_cards(monkeypatch):
+    """The native Fano's timing is the host's: four cards calibrate with
+    one native measurement between them and a device measurement each,
+    and each card's calibration keeps the one-card method and fields."""
+    native, measured = [], []
+    cycle_ms = {0: 0.0125, 1: 0.0125, 2: 0.0125, 3: 0.6}
+
+    def cuda_of(d):
+        return torch.device("cuda" if d is None else d)
+
+    def on_card(device=None, lanes=32):
+        measured.append(str(device))
+        return cycle_ms[device.index]
+
+    def host():
+        native.append(1)
+        return (0.03, 12.0)
+
+    monkeypatch.setattr(pcal, "_cuda_device", cuda_of)
+    monkeypatch.setattr(pcal, "measure_device_fano_cycle_ms", on_card)
+    monkeypatch.setattr(pcal, "measure_native_fano_ms", host)
+    cals = [pcal.get_fec_calibration(f"cuda:{k}") for k in range(4)]
+    assert native == [1]
+    assert measured == [f"cuda:{k}" for k in range(4)]
+    for cal in cals[:3]:
+        assert cal == pcal.FecCalibration("hybrid", 256, 0.0125, 0.03, 12.0,
+                                          "measured")
+    assert cals[3] == pcal.FecCalibration("hybrid", 16, 0.6, 0.03, 12.0,
+                                          "measured")
+    assert pcal.get_fec_calibration("cuda:2") is cals[2]
+    assert native == [1] and len(measured) == 4
+
+
 def test_device_measurement_refuses_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         pcal.measure_device_fano_cycle_ms("cpu")

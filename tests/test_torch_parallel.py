@@ -145,6 +145,108 @@ def test_pipelined_multidevice_isolates_a_failed_shard(wins, monkeypatch):
             depth=1))
 
 
+FOUR_CPUS = ["cpu"] * 4
+
+
+def _wsprbench():
+    """The benchmark's generator, reference and comparison (the repo's
+    ``wsprbench/``, which imports nothing of the JAX package)."""
+    import sys
+    from torch_parity import REPO
+    if str(REPO) not in sys.path:
+        sys.path.insert(0, str(REPO))
+    from wsprbench import compare, gen
+    from wsprbench.reference import constants, decode
+    return compare, gen, constants, decode
+
+
+@pytest.fixture(scope="module")
+def four_cards():
+    """The four-card farm's content at a small size: 16 windows of the
+    ``mixed_x4`` mix (the ``mixed`` content) in 2 pulls of 8, each pull
+    4 shards of 2 windows; the pulls, decode_channels on each shard of
+    each pull, and the mix."""
+    _, gen, _, _ = _wsprbench()
+    mix = gen.load_mix(_wsprbench_file("traffic/mixed_x4.json"))
+    mix = dict(mix, windows=16, batch=8, check_windows=4)
+    pool = gen.baseband(mix, 2**31 + 23, device="cpu")
+    pulls = [(pool.wi[a:a + 8], pool.wq[a:a + 8]) for a in (0, 8)]
+    opts = DecoderOptions()
+    want = [[ch for s0 in range(0, 8, 2)
+             for ch in pmc.decode_channels(wi[s0:s0 + 2], wq[s0:s0 + 2],
+                                           opts, device_batch=2, device=CPU,
+                                           fec="auto")]
+            for wi, wq in pulls]
+    return pool, pulls, want, opts
+
+
+def _wsprbench_file(rel):
+    from torch_parity import REPO
+    return REPO / "wsprbench" / rel
+
+
+def test_pipelined_multidevice_four_shards_match_each_shard_and_reference(
+        four_cards):
+    """decode_channels_pipelined_multidevice over four CPU shards (the
+    four-card farm's shape: int8 link, depth 2, fec auto) gives, for
+    each of 2 pulls of 8 windows, decode_channels on each 2-window shard
+    in every spot field; and on a signal window of each half of a pull
+    (cards 0-1 and 2-3) the spots equal the plain reference's decode of
+    the int8 link samples under the four-card cell's limits."""
+    import json
+    from concurrent.futures import ThreadPoolExecutor
+    compare, _, constants, decode = _wsprbench()
+    pool, pulls, want, opts = four_cards
+    out = list(pmc.decode_channels_pipelined_multidevice(
+        pulls, opts, depth=2, device_batch=2, transfer_dtype="int8",
+        fec="auto", devices=FOUR_CPUS))
+    assert [_fields(o) for o in out] == [_fields(w) for w in want]
+    assert sum(len(ch) for o in out for ch in o) >= 8
+    judged = [next(w for w in range(a, a + 4) if pool.truth[w])
+              for a in (8, 12)]
+    with ThreadPoolExecutor(len(judged)) as ex:
+        ref = dict(zip(judged, ex.map(
+            lambda w: decode.decode_window(decode.quantize(pool.wi[w]),
+                                           decode.quantize(pool.wq[w]),
+                                           constants.Options()),
+            judged)))
+    numbers = compare.spot_numbers(
+        [(w, out[w // 8][w % 8]) for w in judged], ref)
+    limits = json.loads(_wsprbench_file(
+        "limits/farm.mixed.x4.json").read_text())
+    ok, checks = compare.judge(numbers, limits)
+    assert ok, checks
+    assert numbers["spots_judged"] >= 2
+    for w in judged:
+        assert {s.message for s in out[w // 8][w % 8]} == \
+            {s["message"] for s in ref[w]}
+
+
+def test_pipelined_multidevice_four_shards_isolate_a_failed_quarter(
+        four_cards, monkeypatch):
+    """With on_error, the shard of card 2 of the second pull raising
+    empties that pull's third quarter only: every other shard of both
+    pulls keeps decode_channels' spots, and the error is reported once."""
+    pool, pulls, want, opts = four_cards
+    real = pmc.decode_channels
+    poisoned = pmc.prepare_windows(pool.wi[12:14], pool.wq[12:14], 2,
+                                   device=CPU).arrays[0]
+
+    def flaky(*a, windows=None, **kw):
+        if torch.equal(windows.arrays[0], poisoned):
+            raise RuntimeError("poisoned shard")
+        return real(*a, windows=windows, **kw)
+
+    monkeypatch.setattr(pmc, "decode_channels", flaky)
+    errors = []
+    out = list(pmc.decode_channels_pipelined_multidevice(
+        pulls, opts, depth=2, device_batch=2, fec="auto", devices=FOUR_CPUS,
+        on_error=errors.append))
+    assert [str(e) for e in errors] == ["poisoned shard"]
+    emptied = want[1][:4] + [[], []] + want[1][6:]
+    assert [_fields(o) for o in out] == [_fields(want[0]), _fields(emptied)]
+
+
 def test_unindexed_cuda_names_the_current_card(monkeypatch):
     """None and a bare ``cuda`` name the calling thread's current card by
     its index (here card 1 of 2), so a handle, mesh or daemon made on it

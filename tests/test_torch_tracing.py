@@ -437,6 +437,75 @@ def test_batch_id_spans_caller_and_worker(ring, wins, tiny_budget):
         sum(r.counts["stragglers"] for r in fin)
 
 
+def _shard_spans(recs, caller):
+    """{batch: {name: [(card, windows, thread)]}} of the shard spans."""
+    by: dict = {}
+    for r in recs:
+        if r.name in ("shard", "prepare_shard"):
+            by.setdefault(r.batch, {}).setdefault(r.name, []).append(
+                (r.counts["card"], r.counts["windows"], r.thread == caller))
+    return by
+
+
+def test_shard_spans_on_four_cards(ring, wins):
+    """Over four (CPU) devices each shard of each batch has one
+    ``prepare_shard`` on the caller, around its quantize and upload, and
+    one ``shard`` on a worker, around its decode, counting ``card`` 0..3
+    and its windows, both under the batch's id."""
+    wi, wq = wins
+    wi4, wq4 = np.concatenate([wi, wi[:2]]), np.concatenate([wq, wq[:2]])
+    out = list(pmc.decode_channels_pipelined_multidevice(
+        [(wi4, wq4), (wi4[:4], wq4[:4])], QUICK, device_batch=2,
+        devices=[CPU] * 4, fec="host"))
+    assert len(out) == 2
+    recs = tracing.records()
+    caller = threading.get_ident()
+    by = _shard_spans(recs, caller)
+    waits = [r.batch for r in recs if r.name == "await_batch"]
+    assert sorted(by) == sorted(waits) and len(set(waits)) == 2
+    for k, sizes in zip(waits, ((1, 1, 1, 2), (1, 1, 1, 1))):
+        want = list(enumerate(sizes))
+        prep = by[k]["prepare_shard"]
+        dec = by[k]["shard"]
+        assert [(c, n) for c, n, _ in prep] == want
+        assert sorted((c, n) for c, n, _ in dec) == want
+        assert all(on_caller for *_, on_caller in prep)
+        assert not any(on_caller for *_, on_caller in dec)
+    # each shard's quantize and upload sit inside its prepare_shard
+    ids = {r.id: r for r in recs}
+    for r in recs:
+        if r.name in ("quantize", "upload"):
+            assert ids[r.parent].name == "prepare_shard"
+            assert ids[r.parent].batch == r.batch
+    # the decode's layer ranges sit inside the worker's shard span
+    for r in recs:
+        if r.name == "fec_host":
+            top = r
+            while top.parent is not None:
+                top = ids[top.parent]
+            assert top.name == "shard" and top.batch == r.batch
+
+
+def test_shard_spans_on_one_card(ring, wins):
+    """On one device: card 0, one ``shard`` and one ``prepare_shard`` a
+    batch, holding the batch's windows; a stream of handles has a
+    ``shard`` a batch and no ``prepare_shard``."""
+    wi, wq = wins
+    list(pmc.decode_channels_pipelined(
+        [(wi, wq), (wi[:2], wq[:2])], QUICK, device_batch=3, device=CPU,
+        fec="host"))
+    by = _shard_spans(tracing.records(), threading.get_ident())
+    assert [v for _, v in sorted(by.items())] == [
+        {"prepare_shard": [(0, n, True)], "shard": [(0, n, False)]}
+        for n in (3, 2)]
+    list(pmc.decode_channels_pipelined(
+        [pmc.prepare_windows(wi, wq, 3, device=CPU)], QUICK, device=CPU,
+        fec="host"))
+    last = _shard_spans(tracing.records(), threading.get_ident())
+    new = [v for k, v in last.items() if k not in by]
+    assert new == [{"shard": [(0, 3, False)]}]
+
+
 def test_a_generator_batch_is_made_under_its_id(ring, wins):
     """A batch a generator makes when the driver pulls it (as a chain of
     front-end steps does) is recorded under that batch's id."""
